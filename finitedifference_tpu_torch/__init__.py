@@ -1,0 +1,27 @@
+"""finitedifference_tpu_torch: the PyTorch/CUDA port of finitedifference_tpu.
+
+The same modules, function names and signatures as the JAX package, in
+PyTorch's idiom: plain functions on tensors, the device taken from the
+input tensors, Python loops in place of lax.while_loop and lax.scan.
+Every TPU kernel on the ported path is a kernel written by hand for
+NVIDIA Hopper (csrc/), built with nvcc at first use; on CPU tensors each
+kernel's plain PyTorch version runs instead.
+
+Ported so far: the implicit full-order model (config, grid, ops/stencil,
+ops/wavefront, ops/skewed, ops/cuda_wavefront, fom) and convert, which
+carries grids, layouts, arrays and results across from the JAX package.
+This package never imports jax.
+"""
+
+from finitedifference_tpu_torch.config import BurgersConfig, DEFAULT_CONFIG
+from finitedifference_tpu_torch.grid import Grid2D, make_2d_grid
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BurgersConfig",
+    "DEFAULT_CONFIG",
+    "Grid2D",
+    "make_2d_grid",
+    "__version__",
+]

@@ -1,0 +1,247 @@
+"""Skewed-coordinate representation of the Burgers HDM (PyTorch).
+
+Counterpart of finitedifference_tpu/ops/skewed.py. The wavefront solve
+wants fields in anti-diagonal (skewed) layout S[d, r] = X[r, d - r].
+Converting per solve costs a large gather, so the whole time integration
+stays in skewed coordinates, where the upwind stencil maps to contiguous
+shifts:
+
+    west  (r, c-1)  ->  S[d-1, r]      (shift along the diagonal axis)
+    south (r-1, c)  ->  S[d-1, r-1]    (shift along both axes)
+
+and the zero ghost cells fall out of the zero padding outside the valid
+anti-diagonal band. Skew/unskew happens once per trajectory.
+
+Arrays are padded to (nd_pad, ny_pad), the same padding as the JAX
+package, so skewed arrays compare one-to-one; slots outside the valid
+band hold zeros and every residual is masked back to the band.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.ops.cuda_wavefront import solve_skewed_cuda
+
+
+def skew(x: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
+    """(..., ny, nx) -> (..., ny+nx-1, ny) with S[d, r] = X[r, d-r].
+
+    Out-of-range entries are zero.
+    """
+    d = torch.arange(ny + nx - 1, device=x.device)[:, None]
+    r = torch.arange(ny, device=x.device)[None, :]
+    c = d - r
+    valid = (c >= 0) & (c < nx)
+    gathered = x[..., r, c.clamp(0, nx - 1)]  # (..., ndiag, ny)
+    return torch.where(valid, gathered, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+def unskew(s: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
+    """Inverse of `skew`: (..., ny+nx-1, ny) -> (..., ny, nx)."""
+    r = torch.arange(ny, device=s.device)[:, None]
+    c = torch.arange(nx, device=s.device)[None, :]
+    return s[..., r + c, r]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class SkewedLayout(NamedTuple):
+    """Static geometry of the padded skewed representation."""
+    nx: int
+    ny: int
+    nd_pad: int
+    ny_pad: int
+
+    @property
+    def ndiag(self) -> int:
+        return self.ny + self.nx - 1
+
+
+def make_layout(grid: Grid2D, block: int = 128) -> SkewedLayout:
+    ndiag = grid.ny + grid.nx - 1
+    return SkewedLayout(
+        nx=grid.nx, ny=grid.ny,
+        nd_pad=_round_up(ndiag, block),
+        ny_pad=_round_up(grid.ny, 128),
+    )
+
+
+def _band(lay: SkewedLayout, device=None) -> torch.Tensor:
+    """(nd_pad, ny_pad) boolean mask of the valid anti-diagonal band."""
+    d = torch.arange(lay.nd_pad, device=device)[:, None]
+    r = torch.arange(lay.ny_pad, device=device)[None, :]
+    return (r < lay.ny) & (d - r >= 0) & (d - r < lay.nx)
+
+
+def valid_mask(lay: SkewedLayout, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    return _band(lay, device).to(dtype)
+
+
+def to_skewed(x, lay: SkewedLayout) -> torch.Tensor:
+    """(ny, nx) -> padded (nd_pad, ny_pad)."""
+    s = skew(x, lay.ny, lay.nx)
+    return F.pad(s, (0, lay.ny_pad - lay.ny, 0, lay.nd_pad - lay.ndiag))
+
+
+def from_skewed(s, lay: SkewedLayout) -> torch.Tensor:
+    """padded (..., nd_pad, ny_pad) -> (..., ny, nx)."""
+    return unskew(s[..., :lay.ndiag, :lay.ny], lay.ny, lay.nx)
+
+
+def shift_prev_diag(s) -> torch.Tensor:
+    """S[d, r] -> S[d-1, r]: the WEST neighbor in skewed space."""
+    return F.pad(s, (0, 0, 1, 0))[..., :-1, :]
+
+
+def shift_prev_diag_row(s) -> torch.Tensor:
+    """S[d, r] -> S[d-1, r-1]: the SOUTH neighbor in skewed space."""
+    return F.pad(s, (1, 0, 1, 0))[..., :-1, :-1]
+
+
+def skewed_source(lay: SkewedLayout, grid: Grid2D, mu2, dt, dtype,
+                  device=None):
+    """dt * 0.02 * exp(mu2 * xc[c]) at c = d - r, zero off-band."""
+    d = torch.arange(lay.nd_pad, device=device)[:, None]
+    r = torch.arange(lay.ny_pad, device=device)[None, :]
+    c = (d - r).clamp(0, lay.nx - 1)
+    xc = grid.xc(dtype=dtype, device=device)[c]
+    mu2 = torch.as_tensor(mu2, dtype=dtype, device=device)
+    return torch.as_tensor(dt, dtype=dtype, device=device) * 0.02 \
+        * torch.exp(mu2 * xc) * valid_mask(lay, dtype, device)
+
+
+def skewed_inflow_bc(lay: SkewedLayout, grid: Grid2D, mu1, dt, dtype,
+                     device=None):
+    """0.5*dt*mu1^2/dx on the c=0 cells, i.e. the d == r diagonal."""
+    d = torch.arange(lay.nd_pad, device=device)[:, None]
+    r = torch.arange(lay.ny_pad, device=device)[None, :]
+    mask = ((d == r) & (r < lay.ny)).to(dtype)
+    mu1 = torch.as_tensor(mu1, dtype=dtype, device=device)
+    return 0.5 * torch.as_tensor(dt, dtype=dtype, device=device) \
+        * mu1 * mu1 / grid.dx * mask
+
+
+def skewed_residual(u, v, up, vp, dt, grid: Grid2D, lay: SkewedLayout,
+                    src_sk, lbc_sk, valid):
+    """CN residual entirely in skewed space -> (ru, rv), masked to the
+    band. Equals skew(burgers_residual(...)) (tested)."""
+    half_dt = 0.5 * dt
+    fu = 0.5 * (u * u + up * up)
+    fv = 0.5 * (v * v + vp * vp)
+    fuv = 0.5 * (u * v + up * vp)
+
+    def ddx(f):
+        return (f - shift_prev_diag(f)) / grid.dx
+
+    def ddy(f):
+        return (f - shift_prev_diag_row(f)) / grid.dy
+
+    ru = u - up + half_dt * (ddx(fu) + ddy(fuv)) - src_sk - lbc_sk
+    rv = v - vp + half_dt * (ddy(fv) + ddx(fuv))
+    return ru * valid, rv * valid
+
+
+def _half_flux(u, v, dt, grid: Grid2D):
+    """Current-state half of the CN residual: u + 0.5*dt*(ddx(0.5 u^2)
+    + ddy(0.5 u v)) and the v analogue (no mask, no constants)."""
+    half_dt = 0.5 * dt
+    fu = 0.5 * u * u
+    fv = 0.5 * v * v
+    fuv = 0.5 * u * v
+
+    def ddx(f):
+        return (f - shift_prev_diag(f)) / grid.dx
+
+    def ddy(f):
+        return (f - shift_prev_diag_row(f)) / grid.dy
+
+    au = u + half_dt * (ddx(fu) + ddy(fuv))
+    av = v + half_dt * (ddy(fv) + ddx(fuv))
+    return au, av
+
+
+def skewed_step_constant(up, vp, dt, grid: Grid2D, src_sk, lbc_sk,
+                         valid):
+    """Per-STEP constant of the CN residual and the residual at the
+    previous state, in one pass.
+
+    The residual splits as r(u, v) = half(u, v) + cp(up, vp), where the
+    cp half (previous-state fluxes, source, inflow BC) is constant across
+    a step's Newton iterations. Returns (cp_u, cp_v, r0_u, r0_v) with cp
+    pre-masked and r0 = r(up, vp), the Newton init_norm residual.
+    """
+    au, av = _half_flux(up, vp, dt, grid)
+    # -up + 0.5*dt*(prev fluxes) = (au - up) - up = au - 2*up
+    cp_u = (au - 2.0 * up - src_sk - lbc_sk) * valid
+    cp_v = (av - 2.0 * vp) * valid
+    r0_u = au * valid + cp_u
+    r0_v = av * valid + cp_v
+    return cp_u, cp_v, r0_u, r0_v
+
+
+def skewed_residual_iter(u, v, cp_u, cp_v, dt, grid: Grid2D, valid):
+    """Per-iteration CN residual from the step constant; the same values
+    as skewed_residual (tested)."""
+    au, av = _half_flux(u, v, dt, grid)
+    return au * valid + cp_u, av * valid + cp_v
+
+
+def _shift_down(x: torch.Tensor) -> torch.Tensor:
+    """x[r] -> x[r-1] along the last axis, zero at r=0."""
+    return F.pad(x, (1, 0))[..., :-1]
+
+
+def solve_skewed_ref(su, sv, sfu, sfv, dt, grid: Grid2D,
+                     lay: SkewedLayout):
+    """Plain triangular solve on padded skewed inputs: a Python loop over
+    the nd_pad diagonals, in the inputs' dtype and on their device.
+    Entries off the band come out as exactly 0.
+
+    Diagonal d reads diagonal d-1 at row r (west) and r-1 (south); the
+    carry before diagonal 0 is zero.
+    """
+    kx = 0.5 * dt / grid.dx
+    ky = 0.5 * dt / grid.dy
+    valid = _band(lay, su.device)
+    b11 = 1.0 + kx * su + 0.5 * ky * sv
+    b12 = 0.5 * ky * su
+    b21 = 0.5 * kx * sv
+    b22 = 1.0 + ky * sv + 0.5 * kx * su
+    det = b11 * b22 - b12 * b21
+
+    sdu = torch.empty_like(sfu)
+    sdv = torch.empty_like(sfv)
+    du_p = dv_p = u_p = v_p = torch.zeros_like(su[0])
+    for d in range(lay.nd_pad):
+        u_s, v_s = _shift_down(u_p), _shift_down(v_p)    # south neighbors
+        du_s, dv_s = _shift_down(du_p), _shift_down(dv_p)
+        rhs_u = sfu[d] + kx * u_p * du_p + 0.5 * ky * (v_s * du_s
+                                                       + u_s * dv_s)
+        rhs_v = sfv[d] + 0.5 * kx * (v_p * du_p + u_p * dv_p) \
+            + ky * v_s * dv_s
+        du_p = torch.where(valid[d], (b22[d] * rhs_u - b12[d] * rhs_v)
+                           / det[d], 0.0)
+        dv_p = torch.where(valid[d], (b11[d] * rhs_v - b21[d] * rhs_u)
+                           / det[d], 0.0)
+        sdu[d] = du_p
+        sdv[d] = dv_p
+        u_p, v_p = su[d], sv[d]
+    return sdu, sdv
+
+
+def solve_skewed(su, sv, sfu, sfv, dt, grid: Grid2D, lay: SkewedLayout):
+    """Triangular solve on padded skewed inputs (nd_pad, ny_pad): CPU
+    tensors take solve_skewed_ref, every other device the wavefront
+    kernel, which raises on what it cannot run."""
+    if su.device.type == "cpu":
+        return solve_skewed_ref(su, sv, sfu, sfv, dt, grid, lay)
+    return solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay)

@@ -1,0 +1,174 @@
+"""The port's wavefront solve and skewed ops against the JAX package
+(the plain version of the CUDA kernel, run on the CPU)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from finitedifference_tpu.grid import Grid2D as JGrid2D
+from finitedifference_tpu.ops import skewed as jsk
+from finitedifference_tpu.ops import wavefront as jwf
+from finitedifference_tpu.ops.pallas_wavefront import solve_skewed_pallas
+from finitedifference_tpu_torch.convert import (
+    grid_from_jax,
+    layout_from_jax,
+    to_torch,
+)
+from finitedifference_tpu_torch.ops import skewed as tsk
+from finitedifference_tpu_torch.ops import wavefront as twf
+from finitedifference_tpu_torch.ops.stencil import apply_jacobian
+
+MU = [4.75, 0.02]
+DT = 0.07
+F64 = torch.float64
+
+
+def grids(nx, ny):
+    jg = JGrid2D(nx=nx, ny=ny, x_up=100.0, y_up=100.0)
+    return jg, grid_from_jax(jg)
+
+
+def skewed_pair(jg, tg, block=8):
+    jlay = jsk.make_layout(jg, block=block)
+    tlay = tsk.make_layout(tg, block=block)
+    assert tuple(tlay) == tuple(jlay) and layout_from_jax(jlay) == tlay
+    return jlay, tlay
+
+
+def test_skew_unskew_roundtrip_and_vs_jax():
+    x = np.random.default_rng(4).normal(size=(6, 8))
+    s = twf.skew(to_torch(x), 6, 8)
+    assert s.shape == (13, 6)
+    np.testing.assert_array_equal(s.numpy(),
+                                  np.asarray(jwf.skew(jnp.asarray(x), 6, 8)))
+    np.testing.assert_array_equal(twf.unskew(s, 6, 8).numpy(), x)
+
+
+@pytest.mark.parametrize("shape", [(8, 6), (6, 8), (13, 5)])
+def test_solve_jacobian_wavefront(shape):
+    nx, ny = shape
+    jg, tg = grids(nx, ny)
+    ops, _ = oracle.make_problem(nx=nx, ny=ny)
+    rng = np.random.default_rng(5)
+    w = 1 + rng.uniform(size=jg.state_dim)
+    f = rng.normal(size=jg.state_dim)
+    got = twf.solve_jacobian_flat(to_torch(w), to_torch(f), DT, tg).numpy()
+    want_jax = np.asarray(jwf.solve_jacobian_flat(jnp.asarray(w),
+                                                  jnp.asarray(f), DT, jg))
+    want = oracle.spla.spsolve(oracle.jacobian(w, DT, ops), f)
+    for ref in (want_jax, want):
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-12
+
+
+def test_solve_jacobian_sweeps():
+    jg, tg = grids(8, 6)
+    rng = np.random.default_rng(6)
+    u, v = (1 + rng.uniform(size=(6, 8)) for _ in range(2))
+    fu, fv = (rng.normal(size=(6, 8)) for _ in range(2))
+    got = twf.solve_jacobian_sweeps(*map(to_torch, (u, v, fu, fv)), DT, tg)
+    want = jwf.solve_jacobian_sweeps(*map(jnp.asarray, (u, v, fu, fv)), DT,
+                                     jg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-13)
+
+
+def test_skewed_ops_match_jax():
+    jg, tg = grids(12, 10)
+    jlay, tlay = skewed_pair(jg, tg)
+    rng = np.random.default_rng(7)
+    u, v, up, vp = (1 + rng.uniform(size=(10, 12)) for _ in range(4))
+
+    def jskew(x):
+        return jsk.to_skewed(jnp.asarray(x), jlay)
+
+    def tskew(x):
+        return tsk.to_skewed(to_torch(x), tlay)
+
+    for x in (u, v):
+        np.testing.assert_array_equal(tskew(x).numpy(),
+                                      np.asarray(jskew(x)))
+        np.testing.assert_array_equal(
+            tsk.from_skewed(tskew(x), tlay).numpy(), x)
+
+    jvalid = jsk.valid_mask(jlay, jnp.float64)
+    tvalid = tsk.valid_mask(tlay, F64)
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    jsrc = jsk.skewed_source(jlay, jg, MU[1], DT, jnp.float64)
+    jlbc = jsk.skewed_inflow_bc(jlay, jg, MU[0], DT, jnp.float64)
+    tsrc = tsk.skewed_source(tlay, tg, MU[1], DT, F64)
+    tlbc = tsk.skewed_inflow_bc(tlay, tg, MU[0], DT, F64)
+    for t, j in ((tsrc, jsrc), (tlbc, jlbc)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-13)
+
+    got = tsk.skewed_step_constant(tskew(up), tskew(vp), DT, tg, tsrc, tlbc,
+                                   tvalid)
+    want = jsk.skewed_step_constant(jskew(up), jskew(vp), DT, jg, jsrc,
+                                    jlbc, jvalid)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+    got_r = tsk.skewed_residual_iter(tskew(u), tskew(v), got[0], got[1], DT,
+                                     tg, tvalid)
+    want_r = jsk.skewed_residual_iter(jskew(u), jskew(v), want[0], want[1],
+                                      DT, jg, jvalid)
+    full_r = jsk.skewed_residual(jskew(u), jskew(v), jskew(up), jskew(vp),
+                                 DT, jg, jlay, jsrc, jlbc, jvalid)
+    for g, w, f in zip(got_r, want_r, full_r):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+        np.testing.assert_allclose(g.numpy(), np.asarray(f), rtol=0,
+                                   atol=1e-13)
+
+
+def skewed_inputs(jlay, seed, dtype=np.float64):
+    """Skewed u, v in [1, 2] and a normal rhs, zero off the band."""
+    rng = np.random.default_rng(seed)
+    band = np.asarray(jsk.valid_mask(jlay, jnp.float64))
+    shape = (jlay.nd_pad, jlay.ny_pad)
+    return [(a * band).astype(dtype) for a in (
+        1 + rng.uniform(size=shape), 1 + rng.uniform(size=shape),
+        rng.normal(size=shape), rng.normal(size=shape))]
+
+
+def test_solve_skewed_ref_f64_matches_lax():
+    jg, tg = grids(11, 7)
+    jlay, tlay = skewed_pair(jg, tg)
+    arrs = skewed_inputs(jlay, 2)
+    got = tsk.solve_skewed_ref(*map(to_torch, arrs), DT, tg, tlay)
+    want = jsk.solve_skewed_lax(*map(jnp.asarray, arrs), DT, jg, jlay)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-12)
+
+
+def test_solve_skewed_ref_f32_matches_pallas_interpret():
+    """24 diagonals in blocks of 8: the Pallas kernel (interpret mode)
+    carries the chain across 3 sequential grid steps."""
+    jg, tg = grids(14, 11)
+    jlay, tlay = skewed_pair(jg, tg)
+    assert jlay.nd_pad // 8 >= 3
+    arrs = skewed_inputs(jlay, 3, np.float32)
+    got = tsk.solve_skewed_ref(*map(to_torch, arrs), DT, tg, tlay)
+    want = solve_skewed_pallas(*map(jnp.asarray, arrs), DT, jg, jlay,
+                               block=8, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-6,
+                                   atol=1e-6)
+
+
+def test_solve_inverts_own_jacobian():
+    """J(u, v) applied to solve(f) gives back f, with the port's own
+    apply_jacobian (13x5, f64)."""
+    _, tg = grids(13, 5)
+    rng = np.random.default_rng(8)
+    u, v = (to_torch(1 + rng.uniform(size=(5, 13))) for _ in range(2))
+    fu, fv = (to_torch(rng.normal(size=(5, 13))) for _ in range(2))
+    du, dv = twf.solve_jacobian_wavefront(u, v, fu, fv, DT, tg)
+    ju, jv = apply_jacobian(u, v, du, dv, DT, tg)
+    np.testing.assert_allclose(ju.numpy(), fu.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(jv.numpy(), fv.numpy(), rtol=0, atol=1e-12)
