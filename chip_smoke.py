@@ -18,7 +18,24 @@ Phases, each printing its own lines:
    float64 state and float32 snapshots, (a) with float32 solves and
    (b) with float64 solves; 5 warm-up steps, then 3 runs of 100 steps:
    steps/s, Newton iterations per step, one kernel launch per iteration;
-6. a 64^2 float64 trajectory on the card against the CPU.
+6. a 64^2 float64 trajectory on the card against the CPU;
+7. the Gauss-Newton system kernels against their plain PyTorch versions
+   on the card, in float32 and float64: B3 (gn_full) at the 250^2 and
+   750^2 95-mode layouts, B4 (gn_sampled_system) and B5
+   (gn_sampled_step) at the 250^2 synthetic-mesh layout (1508 sampled
+   cells, 95 modes): error and both times (CUDA events, median of 3);
+8. the 250^2 ROM path: FOM snapshots at (4.25, 0.0225), a 95-mode rSVD
+   POD basis, then 500 steps at (4.75, 0.02) of lspg_prom and
+   pallas_prom, and on the bench.py mesh (512 interior cells and the
+   boundary ring) ecsw_hprom, factored_hprom and pallas_hprom (normal,
+   unroll 3 + cg, unroll 3 + fused): steps/s (median of 3), GN its/step,
+   kernel launches (equal to the kernel calls), the difference against
+   the generic engine of the family and the error against the FOM;
+9. the 750^2 streaming PROM: a 95-mode basis from a 500-step 750^2 FOM
+   trajectory, pallas_prom for 500 steps and lspg_prom for 100;
+10. the ECSW offline recipe at 64^2: training matrix on the card, host
+   NNLS (nnls_gram, rel_err_thresh 1e-4), prepare_hprom, then ecsw_hprom
+   and pallas_hprom on the card against the same runs on the CPU.
 
 Then one JSON line on the kernels, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -33,15 +50,30 @@ import time
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch import rom_factored as rf
 from finitedifference_tpu_torch.config import BurgersConfig
+from finitedifference_tpu_torch.ecsw import (
+    compute_ecsw_weights,
+    ecsw_training_matrix,
+)
 from finitedifference_tpu_torch.fom import (
     inviscid_burgers_implicit2d_skewed,
     newton_step,
 )
 from finitedifference_tpu_torch.grid import Grid2D, grid_from_config
-from finitedifference_tpu_torch.ops import _build
+from finitedifference_tpu_torch.ops import _build, gn
+from finitedifference_tpu_torch.ops import cuda_gn as cg
+from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
+from finitedifference_tpu_torch.ops import gn_full as gf
 from finitedifference_tpu_torch.ops import skewed as sk
+from finitedifference_tpu_torch.pod import pod
+from finitedifference_tpu_torch.precision import precision_flags
+from finitedifference_tpu_torch.rom import (
+    ecsw_hprom,
+    lspg_prom,
+    prepare_hprom,
+)
 
 DT = 0.05
 MU = (4.75, 0.02)
@@ -51,6 +83,26 @@ MEAS_STEPS = 100
 REPS = 3
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 F32, F64 = torch.float32, torch.float64
+DEVICE = "cuda"
+
+# the reduced models (bench.py rom_metrics / fine_rom_metrics)
+ROM_N = 250
+FINE_N = 750
+RECIPE_N = 64
+MODES = 95
+ROM_STEPS = 500
+FINE_LSPG_STEPS = 100
+MU_TRAIN = (4.25, 0.0225)
+MESH_INTERIOR = 512        # bench.py:424-431: random interior cells
+RING_WEIGHT = 50.0         # and the boundary ring at the fixed weight
+SNAP_STRIDE = 10           # runners/run_hprom.py:56-59
+# kernel vs plain: both sum the same rows' partial Grams in the working
+# type, over different chunks and orders, then reduce in float64
+GN_TOL = {F32: 5e-5, F64: 1e-12}
+# engines of one family on the same f32 problem: the same equations,
+# solved with different rounding, over 500 steps
+ENGINE_TOL = 1e-2
+GN_KERNELS = ("gn_full", "gn_sampled_system", "gn_sampled_step")
 
 
 def check(ok, what):
@@ -89,11 +141,12 @@ def phase_environment():
          "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[env] allow_tf32: matmul "
-          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
-          f"{torch.backends.cudnn.allow_tf32}")
+    flags = precision_flags()
+    check(not flags["cuda.matmul.allow_tf32"]
+          and not flags["cudnn.allow_tf32"]
+          and flags["float32_matmul_precision"] == "highest",
+          f"the package did not pin full-f32 matmuls: {flags}")
+    print(f"[env] precision pinned by the package: {flags}")
     return card
 
 
@@ -245,6 +298,345 @@ def phase_gpu_vs_cpu():
           f"{gpu.total_newton_its} Newton its on both")
 
 
+# ----------------------------------------------------------------------
+# the reduced models: Gauss-Newton system kernels B3, B4, B5
+# ----------------------------------------------------------------------
+
+def reset_gn_counts():
+    cgf.LAUNCHES = 0
+    cg.SYSTEM_LAUNCHES = 0
+    cg.STEP_LAUNCHES = 0
+
+
+def gn_counts():
+    return {"gn_full": cgf.LAUNCHES, "gn_sampled_system": cg.SYSTEM_LAUNCHES,
+            "gn_sampled_step": cg.STEP_LAUNCHES}
+
+
+def full_system_inputs(n, dtype, seed):
+    """B3 at the n^2, 95-mode layout: unit-scale basis columns, a y whose
+    scalars are O(1), an O(1) step constant zero on dead cells."""
+    grid = Grid2D(nx=n, ny=n)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cells = grid.n_cells
+    basis = torch.randn((2 * cells, MODES), generator=gen, dtype=dtype,
+                        device=DEVICE) / cells ** 0.5
+    vu, vv, tr = gf.pad_basis_full(basis, grid, 4, dtype=dtype)
+    del basis
+    dmask = gf.row_mask(grid, tr, dtype, DEVICE)
+    nxp, _, tile = gf.full_layout(grid, tr)
+    y = (1 + 0.1 * torch.randn(MODES, generator=gen, dtype=dtype,
+                               device=DEVICE)) * (cells / MODES) ** 0.5
+    cp = 0.1 * torch.randn((vu.shape[0], 2), generator=gen, dtype=dtype,
+                           device=DEVICE) * dmask
+    return (vu, vv, y, cp, dmask, MODES, nxp, tile,
+            0.5 * DT / grid.dx, 0.5 * DT / grid.dy)
+
+
+def sampled_system_inputs(dtype, seed):
+    """B4/B5 at the 250^2 synthetic-mesh layout: 512 interior cells plus
+    the 996-cell ring, 95 modes, padded to (6, 1536, 128)."""
+    n_s = MESH_INTERIOR + 4 * (ROM_N - 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p6 = torch.randn((6, n_s, MODES), generator=gen, dtype=dtype,
+                     device=DEVICE) / MODES ** 0.5
+    wgt = 1 + torch.rand(n_s, generator=gen, dtype=dtype, device=DEVICE)
+    p6p, wgt_p = gn.pad_factored_inputs(p6, wgt, dtype=dtype)
+    y = torch.randn(MODES, generator=gen, dtype=dtype, device=DEVICE)
+    cp = 0.1 * torch.randn((p6p.shape[1], 2), generator=gen, dtype=dtype,
+                           device=DEVICE)
+    grid = Grid2D(nx=ROM_N, ny=ROM_N)
+    return (p6p, y, cp, wgt_p, MODES, 0.5 * DT / grid.dx,
+            0.5 * DT / grid.dy)
+
+
+def compare(label, got, want, tol, card, ms, plain_ms):
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{label}: kernel output not finite")
+    rel = max(rel_err(g, w) for g, w in zip(got, want))
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(rel <= tol, f"{label}: kernel vs plain rel {rel} > {tol}")
+    print(f"[gn-kernel] {label}: rel {rel:.3e} max_abs {abs_err:.3e} "
+          f"(tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"({card})")
+    return {"max_abs_err": abs_err, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_gn_kernels(card):
+    """Each Gauss-Newton kernel against its plain version; returns
+    {kernel: {(layout, dtype): numbers}}."""
+    out = {k: {} for k in GN_KERNELS}
+    for n in (ROM_N, FINE_N):
+        for dtype in (F32, F64):
+            args = full_system_inputs(n, dtype, seed=n)
+            vu, vv, y, cp, dmask, k, nxp, tile, hdx, hdy = args
+            slbc = 0.01 * dmask
+            g0, cp0 = gf.gn_full_first(vu, vv, y, slbc, dmask, k, nxp, tile,
+                                       hdx, hdy)
+            w0, wcp = gf.gn_full_ref(vu, vv, y, slbc, dmask, k, nxp, tile,
+                                     hdx, hdy, True)
+            got = gf.gn_full_system(*args)
+            want = gf.gn_full_ref(*args, False)[0]
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: gf.gn_full_system(*args), calls=20)
+            plain_ms = cuda_ms(lambda: gf.gn_full_ref(*args, False), calls=3)
+            out["gn_full"][(n, dtype)] = compare(
+                f"gn_full {n}x{n} layout {tuple(vu.shape)} "
+                f"{str(dtype)[6:]}", (got, g0, cp0), (want, w0, wcp),
+                GN_TOL[dtype], card, ms, plain_ms)
+            del vu, vv, args
+    for dtype in (F32, F64):
+        args = sampled_system_inputs(dtype, seed=1)
+        layout = tuple(args[0].shape)
+        got = gn.gn_system(*args)
+        want = gn.gn_system_ref(*args)
+        ms = cuda_ms(lambda: gn.gn_system(*args), calls=50)
+        plain_ms = cuda_ms(lambda: gn.gn_system_ref(*args), calls=10)
+        out["gn_sampled_system"][(ROM_N, dtype)] = compare(
+            f"gn_sampled_system {ROM_N}x{ROM_N} mesh layout {layout} "
+            f"{str(dtype)[6:]}", (got,), (want,), GN_TOL[dtype], card, ms,
+            plain_ms)
+        dy, rn = gn.gn_step(*args)
+        wdy, wrn = gn.gn_step_ref(*args)
+        ms = cuda_ms(lambda: gn.gn_step(*args), calls=50)
+        plain_ms = cuda_ms(lambda: gn.gn_step_ref(*args), calls=10)
+        # the CG carries the Gram's rounding through 24 iterations
+        out["gn_sampled_step"][(ROM_N, dtype)] = compare(
+            f"gn_sampled_step {ROM_N}x{ROM_N} mesh layout {layout} "
+            f"{str(dtype)[6:]} (dy, rn)", (dy, rn), (wdy, wrn),
+            100 * GN_TOL[dtype], card, ms, plain_ms)
+    return out
+
+
+def run_engine(label, fn, kernel, steps, launches, generic=None,
+               basis=None, hdm=None, reps=REPS):
+    """A warm-up run, then `reps` timed runs of fn() -> ROMResult, each
+    with the kernel counts set to 0 just before it and read just after.
+    With `kernel`, every Gauss-Newton call of the engine must have
+    launched that kernel once (ROMResult.gn_evals) and no other; the
+    launches of the timed runs are added to `launches`. Prints steps/s
+    (median), GN its/step, the difference against the generic engine's
+    result and the error against the FOM snapshots; returns the result.
+    """
+    def once():
+        reset_gn_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        checksum = float(res.red_coords.sum(dtype=F64))
+        elapsed = time.perf_counter() - t0
+        counts = gn_counts()
+        check(np.isfinite(checksum), f"{label}: reduced coords not finite")
+        check(tuple(res.red_coords.shape[1:]) == (steps + 1,),
+              f"{label}: red_coords shape {tuple(res.red_coords.shape)}")
+        expect = {k: 0 for k in GN_KERNELS}
+        if kernel is not None:
+            expect[kernel] = res.gn_evals
+            check(res.gn_evals > 0, f"{label}: no kernel call")
+        check(counts == expect, f"{label}: launches {counts}, expected "
+              f"{expect}")
+        return res, elapsed, counts
+
+    once()
+    rates, its = [], []
+    for _ in range(reps):
+        res, elapsed, counts = once()
+        rates.append(steps / elapsed)
+        its.append(res.total_gn_its / steps)
+        for k, v in counts.items():
+            launches[k] += v
+    line = (f"[rom] {label}: {statistics.median(rates):.2f} steps/s "
+            f"(median of {reps} x {steps} steps; runs "
+            f"{', '.join(f'{r:.2f}' for r in rates)}), "
+            f"{statistics.median(its):.3f} GN its/step")
+    if kernel is not None:
+        line += (f", {counts[kernel]} {kernel} launches per run "
+                 f"(= its {res.total_gn_its} + stopping checks)")
+    if generic is not None:
+        cols = generic.red_coords.shape[1]
+        diff = rel_err(res.red_coords[:, :cols], generic.red_coords)
+        check(diff < ENGINE_TOL, f"{label}: rel {diff} vs generic engine")
+        line += f", rel vs generic engine {diff:.3e}"
+    if hdm is not None:
+        line += f", error vs FOM {err_pct(basis, res, hdm):.4f}%"
+    print(line)
+    return res
+
+
+def err_pct(basis, res, hdm):
+    """100 ||FOM - V y|| / ||FOM|| over the trajectory, on the device."""
+    rom = basis @ res.red_coords.to(basis.dtype)
+    fom = hdm[:, :rom.shape[1]]
+    return 100 * rel_err(rom, fom.to(rom.dtype))
+
+
+def rom_basis(grid, card, solve_dtype=None):
+    """FOM snapshots at the training and test points, and the rSVD POD
+    basis of the training trajectory (f64 Newton, f32 snapshots)."""
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train = inviscid_burgers_implicit2d_skewed(
+        grid, w0, DT, ROM_STEPS, *MU_TRAIN, solve_dtype=solve_dtype,
+        snaps_dtype=F32)
+    t1 = time.perf_counter()
+    basis, svals = pod(train.snaps, num_modes=MODES, method="rsvd",
+                       random_state=0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del train
+    hdm = inviscid_burgers_implicit2d_skewed(
+        grid, w0, DT, ROM_STEPS, *MU, solve_dtype=solve_dtype,
+        snaps_dtype=F32).snaps
+    check(tuple(basis.shape) == (grid.state_dim, MODES)
+          and bool(torch.isfinite(basis).all()), "POD basis malformed")
+    ortho = float((basis.T.double() @ basis.double()
+                   - torch.eye(MODES, dtype=F64, device=DEVICE)).abs().max())
+    check(ortho < 1e-4, f"POD basis not orthonormal ({ortho})")
+    print(f"[rom] {grid.nx}x{grid.ny}: FOM {ROM_STEPS} steps at "
+          f"{MU_TRAIN} in {t1 - t0:.2f} s, rSVD {MODES} modes in "
+          f"{t2 - t1:.2f} s (s[0] {float(svals[0]):.4e}, s[-1] "
+          f"{float(svals[-1]):.4e}, |V^T V - I| {ortho:.1e}); FOM at {MU} "
+          f"for the errors ({card})")
+    return basis, hdm
+
+
+def phase_rom_250(card, launches):
+    """The 250^2 PROM and HPROM engines at the test point."""
+    grid = Grid2D(nx=ROM_N, ny=ROM_N)
+    basis, hdm = rom_basis(grid, card)
+    w0 = torch.ones(grid.state_dim, dtype=F32, device=DEVICE)
+    y0 = basis.T @ w0
+    steps = ROM_STEPS
+
+    def engine(label, fn, kernel=None, generic=None):
+        return run_engine(f"{ROM_N}x{ROM_N} {label} f32", fn, kernel, steps,
+                          launches, generic, basis, hdm)
+
+    prom = engine("lspg_prom normal", lambda: lspg_prom(
+        grid, w0, DT, steps, *MU, basis, ls_method="normal"))
+    vu, vv, dmask, tr = rf.precompute_prom_pallas(grid, basis)
+    engine("pallas_prom normal", lambda: rf.pallas_prom(
+        grid, vu, vv, dmask, y0, DT, steps, *MU, tile_rows=tr),
+        "gn_full", prom)
+    del vu, vv
+
+    rng = np.random.default_rng(0)
+    weights = np.zeros(grid.n_cells)
+    interior = np.zeros((ROM_N, ROM_N), dtype=bool)
+    interior[1:-1, 1:-1] = True
+    weights[rng.choice(np.flatnonzero(interior.ravel()), MESH_INTERIOR,
+                       replace=False)] = 1.0
+    weights[~interior.ravel()] = RING_WEIGHT
+    mesh, sw, ba = prepare_hprom(grid, weights, basis)
+    sw32 = sw.to(F32)
+    print(f"[rom] {ROM_N}x{ROM_N} mesh: {mesh.n_sample} sampled cells "
+          f"({MESH_INTERIOR} interior + ring at weight {RING_WEIGHT}), "
+          f"{mesh.n_aug} augmented")
+    hprom = engine("ecsw_hprom normal", lambda: ecsw_hprom(
+        grid, mesh, sw32, y0, ba, DT, steps, *MU, ls_method="normal"))
+    blocks = rf.precompute_factored_blocks(mesh, ba)
+    engine("factored_hprom normal", lambda: rf.factored_hprom(
+        grid, mesh, sw32, y0, blocks, DT, steps, *MU, ls_method="normal"),
+        generic=hprom)
+    p6p, wgt_p = rf.precompute_pallas_system(blocks, sw32)
+    for label, kernel, kw in (
+            ("normal", "gn_sampled_system", dict(ls_method="normal")),
+            ("unroll3 cg", "gn_sampled_system",
+             dict(ls_method="cg", unroll_its=3)),
+            ("unroll3 fused", "gn_sampled_step",
+             dict(ls_method="fused", unroll_its=3))):
+        engine(f"pallas_hprom {label}", lambda kw=kw: rf.pallas_hprom(
+            grid, mesh, p6p, wgt_p, y0, DT, steps, *MU, **kw), kernel,
+            hprom)
+
+
+def phase_fine_prom(card, launches):
+    """The 750^2 streaming PROM (the case B3 was written for) against
+    the generic LSPG PROM over its first 100 steps."""
+    grid = Grid2D(nx=FINE_N, ny=FINE_N)
+    basis, hdm = rom_basis(grid, card, solve_dtype=F32)
+    w0 = torch.ones(grid.state_dim, dtype=F32, device=DEVICE)
+    y0 = basis.T @ w0
+    vu, vv, dmask, tr = rf.precompute_prom_pallas(grid, basis)
+    prom = run_engine(
+        f"{FINE_N}x{FINE_N} lspg_prom normal f32", lambda: lspg_prom(
+            grid, w0, DT, FINE_LSPG_STEPS, *MU, basis, ls_method="normal"),
+        None, FINE_LSPG_STEPS, launches, None, basis, hdm)
+    run_engine(f"{FINE_N}x{FINE_N} pallas_prom normal f32",
+               lambda: rf.pallas_prom(grid, vu, vv, dmask, y0, DT,
+                                      ROM_STEPS, *MU, tile_rows=tr),
+               "gn_full", ROM_STEPS, launches, prom, basis, hdm)
+
+
+def phase_ecsw_recipe(card, launches):
+    """The HPROM offline recipe end to end at 64^2 (f64): training
+    matrix on the card, host NNLS, the HPROM on the card and on the
+    CPU."""
+    grid = Grid2D(nx=RECIPE_N, ny=RECIPE_N)
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
+    snaps = inviscid_burgers_implicit2d_skewed(grid, w0, DT, ROM_STEPS,
+                                               *MU_TRAIN).snaps
+    basis, _ = pod(snaps, num_modes=MODES)
+    t = ROM_STEPS
+    pairs = (snaps[:, 3:t:SNAP_STRIDE], snaps[:, 0:t - 3:SNAP_STRIDE])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = ecsw_training_matrix(grid, *pairs, basis, *MU_TRAIN, DT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c_cpu = ecsw_training_matrix(grid, *(p.cpu() for p in pairs),
+                                 basis.cpu(), *MU_TRAIN, DT)
+    diff = rel_err(c.cpu(), c_cpu)
+    check(diff < 1e-12, f"training matrix card vs CPU: rel {diff}")
+    t2 = time.perf_counter()
+    weights = compute_ecsw_weights(c, grid, bc_w=RING_WEIGHT,
+                                   rel_err_thresh=1e-4)
+    t3 = time.perf_counter()
+    n_e = int((weights > 0).sum())
+    check(0 < n_e < grid.n_cells and bool(np.all(weights >= 0)),
+          f"ECSW weights: {n_e} positive of {grid.n_cells}")
+    print(f"[ecsw] {RECIPE_N}x{RECIPE_N}, {MODES} modes: training matrix "
+          f"{tuple(c.shape)} on the card in {t1 - t0:.3f} s (rel vs CPU "
+          f"{diff:.1e}); host nnls_gram in {t3 - t2:.2f} s: N_e {n_e} "
+          f"({card})")
+    hdm = inviscid_burgers_implicit2d_skewed(grid, w0, DT, ROM_STEPS,
+                                             *MU).snaps
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        b = basis.to(dev)
+        mesh, sw, ba = prepare_hprom(grid, weights, b)
+        y0 = b.T @ w0.to(dev)
+        p6p, wgt_p = rf.precompute_pallas_system(
+            rf.precompute_factored_blocks(mesh, ba), sw, dtype=F64)
+        reset_gn_counts()
+        generic = ecsw_hprom(grid, mesh, sw, y0, ba, DT, ROM_STEPS, *MU,
+                             ls_method="normal")
+        kernel = rf.pallas_hprom(grid, mesh, p6p, wgt_p, y0, DT, ROM_STEPS,
+                                 *MU)
+        counts = gn_counts()
+        runs[dev] = (generic, kernel)
+        if dev == DEVICE:
+            check(counts["gn_sampled_system"] == kernel.gn_evals > 0,
+                  f"recipe HPROM: {counts} launches for {kernel.gn_evals} "
+                  f"calls")
+            launches["gn_sampled_system"] += counts["gn_sampled_system"]
+    (g_card, k_card), (g_cpu, k_cpu) = runs[DEVICE], runs["cpu"]
+    for label, a, b in (("ecsw_hprom", g_card, g_cpu),
+                        ("pallas_hprom", k_card, k_cpu)):
+        diff = rel_err(a.red_coords.cpu(), b.red_coords)
+        check(diff < 1e-10 and a.total_gn_its == b.total_gn_its,
+              f"recipe {label} card vs CPU: rel {diff}, its "
+              f"{a.total_gn_its} vs {b.total_gn_its}")
+        print(f"[ecsw] {label} f64 {ROM_STEPS} steps card vs CPU: rel "
+              f"{diff:.3e}, {a.total_gn_its} GN its on both, error vs FOM "
+              f"{err_pct(basis, a, hdm):.4f}%")
+    diff = rel_err(k_card.red_coords, g_card.red_coords)
+    check(diff < 1e-10, f"recipe pallas_hprom vs ecsw_hprom: rel {diff}")
+    print(f"[ecsw] pallas_hprom vs ecsw_hprom on the card: rel {diff:.3e}")
+
+
 def main():
     card = phase_environment()
     phase_build()
@@ -253,9 +645,16 @@ def main():
     launches = phase_main_path(card)
     check(launches > 0, "the main path launched no wavefront kernel")
     phase_gpu_vs_cpu()
+    gn_kern = phase_gn_kernels(card)
+    gn_launches = {k: 0 for k in GN_KERNELS}
+    phase_rom_250(card, gn_launches)
+    phase_fine_prom(card, gn_launches)
+    phase_ecsw_recipe(card, gn_launches)
+    for k, v in gn_launches.items():
+        check(v > 0, f"the ROM path launched no {k} kernel")
 
     (err32, ms32, plain32), (err64, ms64, plain64) = kern[F32], kern[F64]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "wavefront_solve",
         "route": "cuda",
         "source": "finitedifference_tpu_torch/csrc/wavefront.cu",
@@ -267,7 +666,31 @@ def main():
         "max_abs_err_f64": err64,
         "ms_f64": ms64,
         "plain_ms_f64": plain64,
-    }]}))
+    }]
+    sources = {
+        "gn_full": ("finitedifference_tpu_torch/csrc/gn_full.cu",
+                    "finitedifference_tpu/ops/pallas_gn_full.py:108",
+                    FINE_N),
+        "gn_sampled_system": ("finitedifference_tpu_torch/csrc/gn_sampled.cu",
+                              "finitedifference_tpu/ops/pallas_gn.py:56",
+                              ROM_N),
+        "gn_sampled_step": ("finitedifference_tpu_torch/csrc/gn_sampled.cu",
+                            "finitedifference_tpu/ops/pallas_gn.py:128",
+                            ROM_N),
+    }
+    for name, (source, replaces, n) in sources.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": gn_launches[name],
+                 "layout": f"{n}x{n}"}
+        for dtype, suffix in ((F32, ""), (F64, "_f64")):
+            for key, value in gn_kern[name][(n, dtype)].items():
+                entry[key + suffix] = value
+        if name == "gn_full":
+            for dtype, suffix in ((F32, ""), (F64, "_f64")):
+                for key, value in gn_kern[name][(ROM_N, dtype)].items():
+                    entry[f"{key}{suffix}_{ROM_N}"] = value
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,16 +7,24 @@ Every TPU kernel on the ported path is a kernel written by hand for
 NVIDIA Hopper (csrc/), built with nvcc at first use; on CPU tensors each
 kernel's plain PyTorch version runs instead.
 
-Ported so far: the implicit full-order model (config, grid, ops/stencil,
-ops/wavefront, ops/skewed, ops/cuda_wavefront, fom) and convert, which
-carries grids, layouts, arrays and results across from the JAX package.
+Ported so far:
+- the implicit full-order model: config, grid, ops/stencil,
+  ops/wavefront, ops/skewed, ops/cuda_wavefront, fom;
+- the reduced models: precision, solvers, pod, snapshots, ops/sampled,
+  rom, ecsw (the NNLS recipe), rom_factored, with the Gauss-Newton
+  system kernels in ops/gn_full + ops/cuda_gn_full and ops/gn +
+  ops/cuda_gn;
+- convert, which carries grids, layouts, meshes, padded inputs, arrays
+  and results across from the JAX package.
+Importing the package pins full-f32 matmuls (no TF32; precision.py).
 This package never imports jax.
 """
 
+from finitedifference_tpu_torch import precision  # noqa: F401 (pins TF32 off)
 from finitedifference_tpu_torch.config import BurgersConfig, DEFAULT_CONFIG
 from finitedifference_tpu_torch.grid import Grid2D, make_2d_grid
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "BurgersConfig",

@@ -1,7 +1,9 @@
 """Carrying state across from the JAX package, without importing jax.
 
-Grids and layouts are read attribute by attribute from any object that
-has the fields, arrays go through numpy. The FOM has no learned weights.
+Grids, layouts, sampled meshes, factored blocks and results are read
+field by field from any object that has the fields; arrays go through
+numpy. The FOM and the linear ROMs have no learned weights: the POD basis
+(and the padded layouts made from it) is the state carried across.
 """
 
 from __future__ import annotations
@@ -10,7 +12,10 @@ import numpy as np
 import torch
 
 from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.ops.sampled import SampledMesh
 from finitedifference_tpu_torch.ops.skewed import SkewedLayout
+from finitedifference_tpu_torch.rom import ROMResult
+from finitedifference_tpu_torch.rom_factored import FactoredBlocks
 
 
 def grid_from_jax(g) -> Grid2D:
@@ -32,6 +37,30 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+_MESH_BOOL = ("has_west", "has_south", "is_left")
+
+
+def mesh_from_jax(mesh, device=None) -> SampledMesh:
+    """A SampledMesh with the fields of `mesh`: index maps as int64,
+    masks as bool, on `device`."""
+    return SampledMesh(*(
+        to_torch(getattr(mesh, f), device=device,
+                 dtype=torch.bool if f in _MESH_BOOL else torch.int64)
+        for f in SampledMesh._fields))
+
+
+def blocks_from_jax(blocks, device=None, dtype=None) -> FactoredBlocks:
+    """FactoredBlocks with the p6 array of `blocks`."""
+    return FactoredBlocks(p6=to_torch(blocks.p6, device=device,
+                                      dtype=dtype))
+
+
+def rom_result_from_jax(res, device=None) -> ROMResult:
+    """A ROMResult with the red_coords and total_gn_its of `res`."""
+    return ROMResult(red_coords=to_torch(res.red_coords, device=device),
+                     total_gn_its=int(res.total_gn_its))
+
+
 def _to_numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -39,5 +68,6 @@ def _to_numpy(x):
 
 
 def result_to_numpy(res):
-    """A FOMResult or NewtonResult with every field as a numpy array."""
+    """A FOMResult, NewtonResult, GNResult or ROMResult with every field
+    as a numpy array (None stays None)."""
     return type(res)(*(_to_numpy(x) for x in res))

@@ -17,7 +17,12 @@ import functools
 
 import torch
 
-from finitedifference_tpu_torch.ops._build import load_library
+from finitedifference_tpu_torch.ops._build import (
+    SCALARS,
+    check_launch,
+    check_tensor,
+    symbol,
+)
 
 LAUNCHES = 0
 
@@ -27,39 +32,20 @@ LAUNCHES = 0
 MAX_NY_PAD = 512 * 8
 MAX_SHARED_BYTES = 232448
 
-_SYMBOLS = {torch.float32: ("fd_wavefront_solve_f32", ctypes.c_float),
-            torch.float64: ("fd_wavefront_solve_f64", ctypes.c_double)}
-
-
 @functools.cache
 def _kernel(dtype):
-    lib = load_library()
-    name, scalar = _SYMBOLS[dtype]
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [scalar, scalar, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.fd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fd_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.fd_cuda_error_string
+    suffix, scalar = SCALARS[dtype]
+    return symbol(f"fd_wavefront_solve_{suffix}",
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                  + [scalar, scalar, ctypes.c_void_p])
 
 
 def _check(su, sv, sfu, sfv, grid, lay):
     shape = (lay.nd_pad, lay.ny_pad)
     for name, x in (("su", su), ("sv", sv), ("sfu", sfu), ("sfv", sfv)):
-        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
-            raise ValueError(f"{name}: the wavefront kernel takes CUDA "
-                             f"tensors, got {getattr(x, 'device', type(x))}")
-        if x.device != su.device or x.dtype != su.dtype:
-            raise ValueError(f"{name}: all inputs must share one device "
-                             f"and dtype ({su.device}, {su.dtype}), got "
-                             f"({x.device}, {x.dtype})")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
-    if su.dtype not in _SYMBOLS:
+        check_tensor(name, x, getattr(su, "device", None),
+                     getattr(su, "dtype", None), [shape])
+    if su.dtype not in SCALARS:
         raise ValueError(f"the wavefront kernel takes float32 or float64, "
                          f"got {su.dtype}")
     if (lay.nx, lay.ny) != (grid.nx, grid.ny) or lay.ny > lay.ny_pad \
@@ -84,7 +70,7 @@ def solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay):
     """
     global LAUNCHES
     _check(su, sv, sfu, sfv, grid, lay)
-    fn, error_string = _kernel(su.dtype)
+    fn = _kernel(su.dtype)
     sdu = torch.empty_like(su)
     sdv = torch.empty_like(su)
     stream = torch.cuda.current_stream(su.device).cuda_stream
@@ -94,8 +80,6 @@ def solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay):
                 lay.nx, lay.ny, lay.nd_pad, lay.ny_pad,
                 float(0.5 * dt / grid.dx), float(0.5 * dt / grid.dy),
                 stream)
-    if rc != 0:
-        raise RuntimeError(f"wavefront kernel launch failed: "
-                           f"{error_string(rc).decode()} (cudaError {rc})")
+    check_launch(rc, "wavefront")
     LAUNCHES += 1
     return sdu, sdv

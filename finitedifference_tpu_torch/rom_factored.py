@@ -1,0 +1,398 @@
+"""Factored-block ECSW HPROM and the kernel engines (PyTorch).
+
+Counterpart of finitedifference_tpu/rom_factored.py. The upwind stencil
+at a sampled cell touches three positions (self, west, south) of u and
+v, so the online Gauss-Newton iteration factors through SIX precomputed
+basis blocks B_p (n_s, k):
+
+    scalars   u_s, u_w, u_so, v_s, v_w, v_so = (stacked B) @ y
+    residual  r(y) = elementwise in the 6 scalars + a per-step constant
+    J V       = sum_p diag(c_p(scalars)) B_p
+    Gram, rhs, |r|^2 = [W J V | W r]^T [W J V | W r]
+
+The per-step constant (the previous state's half of the Crank-Nicolson
+flux) is elementwise in the previous step's scalars.
+
+Engines, each with the stopping rules of rom.ecsw_hprom / rom.lspg_prom
+(reference gauss_newton_ECSW_2D / gauss_newton_LSPG):
+- factored_hprom: the factored system in plain tensor ops;
+- pallas_hprom:   the system as ONE kernel call per Gauss-Newton
+                  iteration (ops/gn.py: csrc/gn_sampled.cu on a CUDA
+                  device), with ls_method "normal", "cg" or "fused"
+                  (the CG folded into the kernel call);
+- pallas_prom:    the FULL-grid LSPG PROM with the streaming system
+                  (ops/gn_full.py: csrc/gn_full.cu on a CUDA device).
+The names keep the JAX package's. The dynamic Gauss-Newton loop reads
+one boolean back per iteration; `unroll_its > 0` runs that many masked
+iterations per step instead, with no read-back until the end of the
+trajectory.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.ops.gn import gn_step, gn_system, \
+    pad_factored_inputs
+from finitedifference_tpu_torch.ops.gn_full import (
+    _round_up,
+    gn_full_first,
+    gn_full_system,
+    pad_basis_full,
+    row_mask,
+)
+from finitedifference_tpu_torch.ops.sampled import (
+    SampledMesh,
+    sampled_inflow_bc,
+    sampled_source,
+)
+from finitedifference_tpu_torch.ops.stencil import inflow_bc_term, source_term
+from finitedifference_tpu_torch.rom import ROMResult
+from finitedifference_tpu_torch.solvers import cg_normal
+
+CG_ITERS = 24
+
+
+class FactoredBlocks(NamedTuple):
+    """Precomputed stencil-position basis blocks.
+
+    p6: (6, n_s, k): V rows at [u_self, u_west, u_south, v_self, v_west,
+        v_south]; west/south rows are zero where the sample sits on the
+        domain boundary (the zero-ghost stencil).
+    """
+    p6: torch.Tensor
+
+
+def precompute_factored_blocks(mesh: SampledMesh,
+                               basis_aug) -> FactoredBlocks:
+    """Gather the six (n_s, k) stencil-position blocks once per mesh."""
+    basis_aug = torch.as_tensor(basis_aug)
+    n_z = mesh.n_aug
+    bu, bv = basis_aug[:n_z, :], basis_aug[n_z:, :]
+
+    def blocks(b):
+        b_west = torch.where(mesh.has_west[:, None], b[mesh.pos_west, :],
+                             0.0)
+        b_south = torch.where(mesh.has_south[:, None],
+                              b[mesh.pos_south, :], 0.0)
+        return b[mesh.pos_self, :], b_west, b_south
+
+    return FactoredBlocks(p6=torch.stack(blocks(bu) + blocks(bv)))
+
+
+def _cholesky_solve(g, b):
+    """g x = b by Cholesky, without a host sync (a non-SPD g gives
+    non-finite x instead of raising, as the JAX package's cho_solve)."""
+    chol, _ = torch.linalg.cholesky_ex(g)
+    return torch.cholesky_solve(b[:, None], chol)[:, 0]
+
+
+def _reduced_solver(ls_method: str):
+    if ls_method == "normal":
+        return _cholesky_solve
+    if ls_method in ("cg", "fused"):
+        return lambda g, b: cg_normal(g, b, CG_ITERS)
+    raise ValueError(f"unknown ls_method {ls_method!r}; use 'normal', "
+                     f"'cg' or 'fused'")
+
+
+def _gauss_newton(y, init_norm, system, *, it0, unrolled, n_iters,
+                  max_its, relnorm_cutoff, min_delta):
+    """Gauss-Newton iterations of one time step from y.
+
+    system(y) -> (dy, rn): the update and the residual norm at y. The
+    stopping check comes before the update (the reference's break):
+    rn / init_norm < relnorm_cutoff, or, once `it` > 0, the stagnation
+    |rn_prev - rn| / rn_prev < min_delta. `it` starts at it0 and counts
+    the updates.
+
+    unrolled: exactly n_iters evaluations; those past the stop leave y
+    frozen; no read-back (it is returned as a 0-dim tensor). Else: a
+    Python loop until the stop or max_its, one read-back per evaluation.
+    Returns (y, it, evaluations).
+    """
+    if unrolled:
+        it = torch.full((), it0, dtype=torch.int64, device=y.device)
+        done = torch.zeros((), dtype=torch.bool, device=y.device)
+        rn_prev = init_norm
+        for _ in range(n_iters):
+            dy, rn = system(y)
+            conv = rn / init_norm < relnorm_cutoff
+            stag = (it > 0) & (torch.abs(rn_prev - rn) / rn_prev
+                               < min_delta)
+            stop = conv | stag | done
+            y = torch.where(stop, y, (y.to(dy.dtype) + dy).to(y.dtype))
+            it = it + (~stop).to(it.dtype)
+            rn_prev = torch.where(done, rn_prev, rn)
+            done = stop
+        return y, it, n_iters
+    it, done, rn_prev, evals = it0, False, init_norm, 0
+    while not done and it < max_its:
+        dy, rn = system(y)
+        evals += 1
+        stop = rn / init_norm < relnorm_cutoff
+        if it > 0:
+            stop = stop | (torch.abs(rn_prev - rn) / rn_prev < min_delta)
+        done = bool(stop)
+        if not done:
+            y = (y.to(dy.dtype) + dy).to(y.dtype)
+            it += 1
+        rn_prev = rn
+    return y, it, evals
+
+
+class _HalfFlux:
+    """The factored residual pieces at the sampled cells."""
+
+    def __init__(self, hdx, hdy, src_lbc):
+        self.qdx, self.qdy = 0.5 * hdx, 0.5 * hdy
+        self.src_lbc = src_lbc
+
+    def half_flux(self, s):
+        """Half the CN flux terms (the current OR previous half of
+        0.5 (f(w) + f(wp))), elementwise in the 6 scalars."""
+        u_s, u_w, u_so, v_s, v_w, v_so = s
+        fuv_s = u_s * v_s
+        ru = self.qdx * (u_s * u_s - u_w * u_w) \
+            + self.qdy * (fuv_s - u_so * v_so)
+        rv = self.qdy * (v_s * v_s - v_so * v_so) \
+            + self.qdx * (fuv_s - u_w * v_w)
+        return ru, rv
+
+    def step_const(self, sp):
+        """-u_p + (previous half of the flux) - src - lbc, and -v_p + ..."""
+        ru_f, rv_f = self.half_flux(sp)
+        return -sp[0] + ru_f - self.src_lbc, -sp[3] + rv_f
+
+    def residual(self, s, cp_u, cp_v):
+        ru_f, rv_f = self.half_flux(s)
+        return s[0] + ru_f + cp_u, s[3] + rv_f + cp_v
+
+
+def _time_loop(y0, num_steps, step, scalars=None):
+    """Shared trajectory loop: step(yp, sp) -> (y, its, evals), where sp
+    = scalars(yp) when the engine carries the previous step's scalars."""
+    def carried(y):
+        return None if scalars is None else scalars(y)
+
+    ys = torch.empty((num_steps + 1, y0.shape[0]), dtype=y0.dtype,
+                     device=y0.device)
+    ys[0] = y0
+    yp, sp, its, evals = y0, carried(y0), 0, 0
+    for i in range(num_steps):
+        y, it, ev = step(yp, sp)
+        ys[i + 1] = y
+        its, evals = its + it, evals + ev
+        yp, sp = y, carried(y)
+    return ROMResult(red_coords=ys.T, total_gn_its=int(its),
+                     gn_evals=evals)
+
+
+def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
+                   blocks: FactoredBlocks, dt, num_steps, mu1, mu2, *,
+                   max_its: int = 20, relnorm_cutoff: float = 1e-5,
+                   min_delta: float = 0.1, unroll_its: int = 0,
+                   ls_method: str = "normal") -> ROMResult:
+    """HPROM time loop on the factored stencil blocks, in plain tensor
+    ops, in y0's dtype.
+
+    unroll_its > 0 runs that many masked Gauss-Newton iterations per
+    step; iterations past the stopping rules freeze y, so the trajectory
+    is the dynamic loop's whenever it would have stopped within the
+    budget. The JAX package's `axis_name` (SPMD over the sampled cells)
+    waits for parallel/ (ROADMAP).
+    """
+    y0 = torch.as_tensor(y0)
+    dtype, device = y0.dtype, y0.device
+    p6 = blocks.p6.to(dtype=dtype, device=device)
+    _, n_s, k = p6.shape
+    p_flat = p6.reshape(6 * n_s, k)
+    hdx = 0.5 * dt / grid.dx
+    hdy = 0.5 * dt / grid.dy
+    qdx, qdy = 0.5 * hdx, 0.5 * hdy
+    src_lbc = sampled_source(mesh, grid, mu2, dt, dtype) \
+        + sampled_inflow_bc(mesh, grid, mu1, dt, dtype)
+    fl = _HalfFlux(hdx, hdy, src_lbc)
+    wgt = torch.as_tensor(sample_weights, device=device).to(dtype)
+    if ls_method == "fused":
+        raise ValueError("ls_method='fused' needs the kernel engine "
+                         "(pallas_hprom)")
+    solve_ls = _reduced_solver(ls_method)
+
+    def scalars(y):
+        return (p_flat @ y).reshape(6, n_s)
+
+    def gn_system_plain(s, ru, rv):
+        """Weighted [J V | r] and its Gram extension."""
+        u_s, u_w, u_so, v_s, v_w, v_so = s
+        zero = torch.zeros_like(u_s)
+        cu = torch.stack([1.0 + hdx * u_s + qdy * v_s, -hdx * u_w,
+                          -qdy * v_so, qdy * u_s, zero, -qdy * u_so])
+        cv = torch.stack([qdx * v_s, -qdx * v_w, zero,
+                          1.0 + hdy * v_s + qdx * u_s, -qdx * u_w,
+                          -hdy * v_so])
+        ju = torch.einsum("pn,pnk->nk", cu * wgt, p6)
+        jv = torch.einsum("pn,pnk->nk", cv * wgt, p6)
+        a = torch.cat((torch.cat((ju, (wgt * ru)[:, None]), dim=1),
+                       torch.cat((jv, (wgt * rv)[:, None]), dim=1)), dim=0)
+        return a.T @ a
+
+    def step(yp, sp):
+        cp_u, cp_v = fl.step_const(sp)
+        ru0, rv0 = fl.residual(sp, cp_u, cp_v)
+        init_norm = torch.sqrt(torch.sum((wgt * ru0) ** 2)
+                               + torch.sum((wgt * rv0) ** 2))
+
+        def system(y):
+            s = scalars(y)
+            gext = gn_system_plain(s, *fl.residual(s, cp_u, cp_v))
+            return solve_ls(gext[:k, :k], -gext[:k, k]), \
+                torch.sqrt(gext[k, k])
+
+        return _gauss_newton(yp, init_norm, system, it0=0,
+                             unrolled=unroll_its > 0, n_iters=unroll_its,
+                             max_its=max_its, relnorm_cutoff=relnorm_cutoff,
+                             min_delta=min_delta)
+
+    return _time_loop(y0, num_steps, step, scalars)
+
+
+def precompute_pallas_system(blocks: FactoredBlocks, sample_weights,
+                             tile: int = 256, dtype=torch.float32):
+    """Padded (p6p, wgt_p) for pallas_hprom (ops/gn.pad_factored_inputs),
+    float32 as in the JAX package unless `dtype` says otherwise."""
+    return pad_factored_inputs(blocks.p6, sample_weights, tile=tile,
+                               dtype=dtype)
+
+
+def pallas_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
+                 mu1, mu2, *, max_its: int = 20,
+                 relnorm_cutoff: float = 1e-5, min_delta: float = 0.1,
+                 unroll_its: int = 0, ls_method: str = "normal",
+                 tile: int = 256) -> ROMResult:
+    """factored_hprom with the whole Gauss-Newton system in ONE kernel
+    call per iteration (ops/gn.gn_system; csrc/gn_sampled.cu on a CUDA
+    device), in p6p's dtype.
+
+    ls_method "normal" (Cholesky) or "cg" solve the reduced system after
+    the call; "fused" folds the CG into the call (ops/gn.gn_step), so an
+    iteration is one kernel call and no other work. `tile` is the padding
+    tile of p6p (the plain version's partial-Gram tiles).
+    ROMResult.gn_evals counts the kernel calls.
+    """
+    dtype, device = p6p.dtype, p6p.device
+    y0 = torch.as_tensor(y0, device=device).to(dtype)
+    n_p, kp = p6p.shape[1], p6p.shape[2]
+    n_s = mesh.n_sample
+    k = y0.shape[0]
+    p_flat = p6p.reshape(6 * n_p, kp)
+    hdx = float(0.5 * dt / grid.dx)
+    hdy = float(0.5 * dt / grid.dy)
+    pad = (0, n_p - n_s)
+    src_lbc = F.pad(sampled_source(mesh, grid, mu2, dt, dtype)
+                    + sampled_inflow_bc(mesh, grid, mu1, dt, dtype), pad)
+    fl = _HalfFlux(hdx, hdy, src_lbc)
+    wgt = wgt_p[:, 0]
+    solve_ls = _reduced_solver(ls_method)
+
+    def scalars(y):
+        y_pad = torch.zeros(kp, dtype=dtype, device=device)
+        y_pad[:k] = y
+        return (p_flat @ y_pad).reshape(6, n_p)
+
+    def step(yp, sp):
+        cp_u, cp_v = fl.step_const(sp)
+        cp = torch.stack((cp_u, cp_v), dim=1)
+        ru0, rv0 = fl.residual(sp, cp_u, cp_v)
+        init_norm = torch.sqrt(torch.sum((wgt * ru0) ** 2)
+                               + torch.sum((wgt * rv0) ** 2))
+
+        def system(y):
+            if ls_method == "fused":
+                return gn_step(p6p, y, cp, wgt_p, k, hdx, hdy, tile=tile,
+                               solve_iters=CG_ITERS)
+            gext = gn_system(p6p, y, cp, wgt_p, k, hdx, hdy, tile=tile)
+            return solve_ls(gext[:k, :k], -gext[:k, k]), \
+                torch.sqrt(gext[k, k])
+
+        return _gauss_newton(yp, init_norm, system, it0=0,
+                             unrolled=unroll_its > 0, n_iters=unroll_its,
+                             max_its=max_its, relnorm_cutoff=relnorm_cutoff,
+                             min_delta=min_delta)
+
+    return _time_loop(y0, num_steps, step, scalars)
+
+
+def precompute_prom_pallas(grid: Grid2D, basis, tile_rows=None,
+                           dtype=torch.float32):
+    """Padded (vu_p, vv_p, dmask, tile_rows) for pallas_prom
+    (ops/gn_full.pad_basis_full + row_mask), float32 as in the JAX
+    package unless `dtype` says otherwise."""
+    vu_p, vv_p, tr = pad_basis_full(basis, grid, tile_rows, dtype=dtype)
+    return vu_p, vv_p, row_mask(grid, tr, dtype, vu_p.device), tr
+
+
+def pallas_prom(grid: Grid2D, vu_p, vv_p, dmask, y0, dt, num_steps,
+                mu1, mu2, *, max_its: int = 20,
+                relnorm_cutoff: float = 1e-5, min_delta: float = 0.1,
+                unroll_its: int = 0, ls_method: str = "normal",
+                tile_rows: int = 4, ls_dtype=None) -> ROMResult:
+    """FULL-grid LSPG PROM with the streaming Gauss-Newton system
+    (ops/gn_full.py; csrc/gn_full.cu on a CUDA device), in vu_p's dtype.
+
+    Per Gauss-Newton iteration: ONE system call (the scalars, residual,
+    J V rows and the (k+1, k+1) Gram extension from one pass over the
+    padded basis, reduced in float64) and the small reduced solve in
+    `ls_dtype` (default: vu_p's dtype). The first iteration of each step
+    also derives the step constant, so a step costs exactly its
+    iterations' calls plus the stopping check. Same math and stopping
+    rules as rom.lspg_prom; the first update of a step is always taken.
+    unroll_its > 0 runs that many calls per step in all (the first
+    included), masked. ROMResult.gn_evals counts the kernel calls.
+    """
+    dtype, device = vu_p.dtype, vu_p.device
+    y0 = torch.as_tensor(y0, device=device).to(dtype)
+    k = y0.shape[0]
+    n_pad = vu_p.shape[0]
+    nxp = _round_up(grid.nx + 1, 8)      # dead-cell row layout
+    ny_pad = n_pad // nxp
+    tile = tile_rows * nxp
+    sdt = dtype if ls_dtype is None else ls_dtype
+    hdx = float(0.5 * dt / grid.dx)
+    hdy = float(0.5 * dt / grid.dy)
+    slbc = torch.zeros((ny_pad, nxp), dtype=dtype, device=device)
+    slbc[: grid.ny, : grid.nx] = \
+        source_term(grid, mu2, dt, dtype, device) \
+        + inflow_bc_term(grid, mu1, dt, dtype, device)
+    slbc = slbc.reshape(n_pad, 1)
+    if ls_method == "fused":
+        raise ValueError("pallas_prom takes ls_method 'normal' or 'cg'")
+    solve_ls = _reduced_solver(ls_method)
+
+    def solve(gext):
+        return solve_ls(gext[:k, :k], -gext[:k, k])
+
+    def step(yp, _sp):
+        gext0, cp = gn_full_first(vu_p, vv_p, yp, slbc, dmask, k, nxp,
+                                  tile, hdx, hdy)
+        gext0 = gext0.to(sdt)
+        init_norm = torch.sqrt(gext0[k, k])
+        dy0 = solve(gext0)
+        y1 = (yp.to(dy0.dtype) + dy0).to(dtype)
+
+        def system(y):
+            gext = gn_full_system(vu_p, vv_p, y, cp, dmask, k, nxp, tile,
+                                  hdx, hdy).to(sdt)
+            return solve(gext), torch.sqrt(gext[k, k])
+
+        y, it, ev = _gauss_newton(
+            y1, init_norm, system, it0=1, unrolled=unroll_its > 0,
+            n_iters=unroll_its - 1, max_its=max_its,
+            relnorm_cutoff=relnorm_cutoff, min_delta=min_delta)
+        return y, it, ev + 1
+
+    return _time_loop(y0, num_steps, step)
