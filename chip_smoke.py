@@ -35,11 +35,33 @@ Phases, each printing its own lines:
    trajectory, pallas_prom for 500 steps and lspg_prom for 100;
 10. the ECSW offline recipe at 64^2: training matrix on the card, host
    NNLS (nnls_gram, rel_err_thresh 1e-4), prepare_hprom, then ecsw_hprom
-   and pallas_hprom on the card against the same runs on the CPU.
+   and pallas_hprom on the card against the same runs on the CPU;
+11. [seg-kernel] the overlapping-segment wavefront kernel (B7) against its
+   plain version at the 750^2 layout, n_seg 8, overlap 64, f32 and f64:
+   error, zeros off the band, difference from B1's exact solve, both
+   kernels' times;
+12. [main-seg] the 750^2 trajectory with seg=8, seg_overlap=64 (f32
+   solves, f64 Newton, f32 snapshots): steps/s, Newton its/step, one B7
+   launch per Newton iteration, final state against the exact chain;
+13. [traj-kernel] the whole-trajectory kernel (B6) against its plain
+   version on the 250^2 bench mesh layout (6, 1536, 128), 50 steps, 1
+   and 9 trajectories, f32 and f64: error and both times (the plain
+   version's, seconds long, from the one run compared);
+14. [rom] pallas_traj_hprom (one launch for 500 steps) and tensor_hprom on
+   the bench mesh, against ecsw_hprom and the FOM;
+15. [sweep] the 9-point μ grid of bench.py at 250^2: sweep_hprom generic,
+   factored and pallas_traj (one launch for all 9 points) for 500 steps,
+   each point held against its own run, and sweep_fom(engine="skewed",
+   seg=8) for 100 steps: aggregate steps/s.
+Each main path runs with the kernels' counts set to 0 just before it and
+read just after; it fails if a kernel of the path was not launched.
 
-Then one JSON line on the kernels, the card line, and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero;
-without a CUDA device the script fails at once and prints no result.
+Then one JSON line on the kernels (with each kernel's bound: the larger
+of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s in f32 or
+34 TFLOP/s in f64, the H100 SXM data sheet's rates), the card line, and
+last {"ok": true, "device": {...}}. Any failure raises and exits
+non-zero; without a CUDA device the script fails at once and prints no
+result.
 """
 
 import json
@@ -51,6 +73,7 @@ import numpy as np
 import torch
 
 from finitedifference_tpu_torch import rom_factored as rf
+from finitedifference_tpu_torch import rom_tensor as rt
 from finitedifference_tpu_torch.config import BurgersConfig
 from finitedifference_tpu_torch.ecsw import (
     compute_ecsw_weights,
@@ -67,6 +90,7 @@ from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import gn_full as gf
 from finitedifference_tpu_torch.ops import skewed as sk
+from finitedifference_tpu_torch.parallel.sweep import sweep_fom, sweep_hprom
 from finitedifference_tpu_torch.pod import pod
 from finitedifference_tpu_torch.precision import precision_flags
 from finitedifference_tpu_torch.rom import (
@@ -102,12 +126,44 @@ GN_TOL = {F32: 5e-5, F64: 1e-12}
 # engines of one family on the same f32 problem: the same equations,
 # solved with different rounding, over 500 steps
 ENGINE_TOL = 1e-2
-GN_KERNELS = ("gn_full", "gn_sampled_system", "gn_sampled_step")
+GN_KERNELS = ("gn_full", "gn_sampled_system", "gn_sampled_step", "gn_traj")
+
+# the segmented solve and the μ sweeps (bench.py:168-200, 549-551)
+SEG = 8
+SEG_OVERLAP = 64
+TRAJ_STEPS = 50
+SWEEP_MUS = [(m1, m2) for m1 in (4.4, 4.9, 5.4) for m2 in (0.016, 0.022,
+                                                           0.028)]
+SWEEP_FOM_STEPS = 100
+
+# the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM, and
+# FP32 / FP64 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {F32: 67e12, F64: 34e12}
+# operations of the wavefront step per band cell: the 2x2 block and its
+# determinant (18), the reciprocal (1), two right-hand sides (18), the
+# solve (8)
+WAVEFRONT_OPS = 45
 
 
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of `nbytes` over its memory rate and `ops` over its peak rate
+    for `dtype`."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gram_ops(rows, k):
+    """Operations of the symmetric Gram of `rows` rows over k + 1 lanes."""
+    return rows * (k + 1) * (k + 2)
 
 
 def rel_err(got, want):
@@ -128,6 +184,18 @@ def cuda_ms(fn, calls):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def cuda_ms_once(fn):
+    """(ms, fn()) of one call (CUDA events): for plain versions that take
+    seconds, timed on the run that is compared with the kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def phase_environment():
@@ -169,8 +237,7 @@ def skewed_inputs(lay, dtype, seed):
 
 
 def phase_kernel_vs_plain(card):
-    """Returns {dtype: (max_abs_err, ms, plain_ms)} at the main-path
-    layout."""
+    """Returns {dtype: numbers} at the main-path layout."""
     main = {}
     for nx, ny in ((MAIN_N, MAIN_N), (200, 1100)):
         grid = Grid2D(nx=nx, ny=ny)
@@ -194,12 +261,18 @@ def phase_kernel_vs_plain(card):
                          calls=20)
             plain_ms = cuda_ms(
                 lambda: sk.solve_skewed_ref(*args, DT, grid, lay), calls=1)
+            bound_ms, bound_by = bound(
+                6 * lay.nd_pad * lay.ny_pad * args[0].element_size(),
+                WAVEFRONT_OPS * nx * ny, dtype)
             print(f"[kernel] {nx}x{ny} layout {lay.nd_pad}x{lay.ny_pad} "
                   f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e}, "
                   f"zeros off band ok; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.2f} ms ({card})")
+                  f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"({card})")
             if (nx, ny) == (MAIN_N, MAIN_N):
-                main[dtype] = (abs_err, ms, plain_ms)
+                main[dtype] = dict(max_abs_err=abs_err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
     return main
 
 
@@ -233,7 +306,8 @@ def phase_entry_step(card):
 
 def phase_main_path(card):
     """The 750^2 trajectory with f32 and with f64 solves; returns the
-    kernel launches of all its runs."""
+    kernel launches of all its runs and the final state of the last
+    f32-solve run."""
     grid = Grid2D(nx=MAIN_N, ny=MAIN_N)
     w0 = torch.ones(grid.state_dim, dtype=F64, device="cuda")
     total_launches = 0
@@ -281,7 +355,7 @@ def phase_main_path(card):
     print(f"[main] final f32 snapshot (a) vs (b): rel {rel_err(a, b):.3e}, "
           f"{int((a != b).sum())} of {a.numel()} entries differ, max abs "
           f"difference {float((a - b).abs().max()):.3e}")
-    return total_launches
+    return total_launches, a
 
 
 def phase_gpu_vs_cpu():
@@ -306,11 +380,13 @@ def reset_gn_counts():
     cgf.LAUNCHES = 0
     cg.SYSTEM_LAUNCHES = 0
     cg.STEP_LAUNCHES = 0
+    cg.TRAJ_LAUNCHES = 0
 
 
 def gn_counts():
     return {"gn_full": cgf.LAUNCHES, "gn_sampled_system": cg.SYSTEM_LAUNCHES,
-            "gn_sampled_step": cg.STEP_LAUNCHES}
+            "gn_sampled_step": cg.STEP_LAUNCHES,
+            "gn_traj": cg.TRAJ_LAUNCHES}
 
 
 def full_system_inputs(n, dtype, seed):
@@ -350,17 +426,19 @@ def sampled_system_inputs(dtype, seed):
             0.5 * DT / grid.dy)
 
 
-def compare(label, got, want, tol, card, ms, plain_ms):
+def compare(label, got, want, tol, card, ms, plain_ms, nbytes, ops):
     check(all(bool(torch.isfinite(g).all()) for g in got),
           f"{label}: kernel output not finite")
     rel = max(rel_err(g, w) for g, w in zip(got, want))
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(rel <= tol, f"{label}: kernel vs plain rel {rel} > {tol}")
+    bound_ms, bound_by = bound(nbytes, ops, got[0].dtype)
     print(f"[gn-kernel] {label}: rel {rel:.3e} max_abs {abs_err:.3e} "
-          f"(tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({card})")
+          f"(tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
     return {"max_abs_err": abs_err, "rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_gn_kernels(card):
@@ -381,14 +459,27 @@ def phase_gn_kernels(card):
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: gf.gn_full_system(*args), calls=20)
             plain_ms = cuda_ms(lambda: gf.gn_full_ref(*args, False), calls=3)
+            n_pad, kp = vu.shape
+            # the two basis halves, y, cp, the mask and the float64 Gram;
+            # a GEMV per half, the rows pass, the symmetric Gram
+            nbytes = (2 * n_pad * kp + k + 3 * n_pad) * vu.element_size() \
+                + 8 * kp * kp
+            ops = gram_ops(2 * n_pad, k) + 22 * n_pad * k
             out["gn_full"][(n, dtype)] = compare(
                 f"gn_full {n}x{n} layout {tuple(vu.shape)} "
                 f"{str(dtype)[6:]}", (got, g0, cp0), (want, w0, wcp),
-                GN_TOL[dtype], card, ms, plain_ms)
+                GN_TOL[dtype], card, ms, plain_ms, nbytes, ops)
             del vu, vv, args
     for dtype in (F32, F64):
         args = sampled_system_inputs(dtype, seed=1)
         layout = tuple(args[0].shape)
+        _, n_p, kp = layout
+        k, e = args[4], args[0].element_size()
+        # the blocks, y, cp, the weights; six GEMVs, the rows pass, the
+        # symmetric Gram; the step adds the CG and writes (2, kp)
+        inputs = (6 * n_p * kp + k + 3 * n_p) * e
+        system_ops = gram_ops(2 * n_p, k) + 30 * n_p * k
+        cg_ops = rf.CG_ITERS * (2 * k * k + 10 * k)
         got = gn.gn_system(*args)
         want = gn.gn_system_ref(*args)
         ms = cuda_ms(lambda: gn.gn_system(*args), calls=50)
@@ -396,7 +487,7 @@ def phase_gn_kernels(card):
         out["gn_sampled_system"][(ROM_N, dtype)] = compare(
             f"gn_sampled_system {ROM_N}x{ROM_N} mesh layout {layout} "
             f"{str(dtype)[6:]}", (got,), (want,), GN_TOL[dtype], card, ms,
-            plain_ms)
+            plain_ms, inputs + kp * kp * e, system_ops)
         dy, rn = gn.gn_step(*args)
         wdy, wrn = gn.gn_step_ref(*args)
         ms = cuda_ms(lambda: gn.gn_step(*args), calls=50)
@@ -405,7 +496,8 @@ def phase_gn_kernels(card):
         out["gn_sampled_step"][(ROM_N, dtype)] = compare(
             f"gn_sampled_step {ROM_N}x{ROM_N} mesh layout {layout} "
             f"{str(dtype)[6:]} (dy, rn)", (dy, rn), (wdy, wrn),
-            100 * GN_TOL[dtype], card, ms, plain_ms)
+            100 * GN_TOL[dtype], card, ms, plain_ms, inputs + 2 * kp * e,
+            system_ops + cg_ops)
     return out
 
 
@@ -450,7 +542,9 @@ def run_engine(label, fn, kernel, steps, launches, generic=None,
             f"(median of {reps} x {steps} steps; runs "
             f"{', '.join(f'{r:.2f}' for r in rates)}), "
             f"{statistics.median(its):.3f} GN its/step")
-    if kernel is not None:
+    if kernel == "gn_traj":
+        line += ", 1 gn_traj launch per run (the whole trajectory)"
+    elif kernel is not None:
         line += (f", {counts[kernel]} {kernel} launches per run "
                  f"(= its {res.total_gn_its} + stopping checks)")
     if generic is not None:
@@ -503,7 +597,9 @@ def rom_basis(grid, card, solve_dtype=None):
 
 
 def phase_rom_250(card, launches):
-    """The 250^2 PROM and HPROM engines at the test point."""
+    """The 250^2 PROM and HPROM engines at the test point; returns what
+    the later phases reuse: the grid, basis, FOM snapshots, bench mesh,
+    its f32 weights and blocks, y0 and the ecsw_hprom result."""
     grid = Grid2D(nx=ROM_N, ny=ROM_N)
     basis, hdm = rom_basis(grid, card)
     w0 = torch.ones(grid.state_dim, dtype=F32, device=DEVICE)
@@ -550,6 +646,8 @@ def phase_rom_250(card, launches):
         engine(f"pallas_hprom {label}", lambda kw=kw: rf.pallas_hprom(
             grid, mesh, p6p, wgt_p, y0, DT, steps, *MU, **kw), kernel,
             hprom)
+    return dict(grid=grid, basis=basis, hdm=hdm, mesh=mesh, sw32=sw32,
+                ba=ba, p6p=p6p, wgt_p=wgt_p, y0=y0, hprom=hprom)
 
 
 def phase_fine_prom(card, launches):
@@ -637,59 +735,346 @@ def phase_ecsw_recipe(card, launches):
     print(f"[ecsw] pallas_hprom vs ecsw_hprom on the card: rel {diff:.3e}")
 
 
+# ----------------------------------------------------------------------
+# the segmented wavefront solve (B7), the whole-trajectory
+# kernel (B6) and the μ sweeps
+# ----------------------------------------------------------------------
+
+def band_cells_per_diagonal(lay):
+    return sk.valid_mask(lay, F64).sum(dim=1).long().tolist()
+
+
+def seg_cells(lay, n_seg, overlap):
+    """Band cells the segmented solve processes, warm-ups included."""
+    per_diag = band_cells_per_diagonal(lay)
+    seg_len = sk.segment_length(lay, n_seg)
+    total = 0
+    for g in range(n_seg):
+        lo = max(0, g * seg_len - overlap)
+        hi = min(lay.nd_pad, (g + 1) * seg_len)
+        total += sum(per_diag[lo:hi])
+    return total
+
+
+def phase_seg_kernel(card):
+    """B7 against its plain version and beside B1 at the 750^2 layout;
+    returns {dtype: numbers}."""
+    grid = Grid2D(nx=MAIN_N, ny=MAIN_N)
+    lay = sk.make_layout(grid)
+    off_band = ~sk.valid_mask(lay, torch.bool, DEVICE)
+    cells = seg_cells(lay, SEG, SEG_OVERLAP)
+    out = {}
+    for dtype in (F32, F64):
+        args = skewed_inputs(lay, dtype, seed=7)
+        kw = dict(n_seg=SEG, overlap=SEG_OVERLAP)
+        got = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+        want = sk.solve_skewed_seg_ref(*args, DT, grid, lay, **kw)
+        exact = cw.solve_skewed_cuda(*args, DT, grid, lay)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "seg kernel output not finite")
+        rel = max(rel_err(g, w) for g, w in zip(got, want))
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(rel <= KERNEL_TOL[dtype], f"seg kernel vs plain {dtype}: rel "
+              f"{rel}")
+        check(all(bool((g[off_band] == 0).all()) for g in got),
+              f"seg kernel {dtype}: nonzero off the band")
+        vs_exact = max(rel_err(g, e) for g, e in zip(got, exact))
+        check(vs_exact < 1e-4, f"seg kernel {dtype} vs the exact solve: rel "
+              f"{vs_exact}")
+        ms = cuda_ms(lambda: cw.solve_skewed_seg_cuda(*args, DT, grid, lay,
+                                                      **kw), calls=50)
+        b1_ms = cuda_ms(lambda: cw.solve_skewed_cuda(*args, DT, grid, lay),
+                        calls=50)
+        plain_ms = cuda_ms(lambda: sk.solve_skewed_seg_ref(
+            *args, DT, grid, lay, **kw), calls=1)
+        nbytes = 6 * lay.nd_pad * lay.ny_pad * args[0].element_size()
+        bound_ms, bound_by = bound(nbytes, WAVEFRONT_OPS * cells, dtype)
+        print(f"[seg-kernel] {MAIN_N}x{MAIN_N} layout {lay.nd_pad}x"
+              f"{lay.ny_pad} n_seg {SEG} overlap {SEG_OVERLAP} "
+              f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e} vs "
+              f"plain, zeros off band ok, rel {vs_exact:.3e} vs B1's exact "
+              f"solve; kernel {ms:.4f} ms (B1 {b1_ms:.4f} ms), plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+              f"({card})")
+        out[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                          b1_ms=b1_ms, rel_vs_exact=vs_exact,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_main_seg(card, exact_final):
+    """The 750^2 trajectory with the segmented solve (bench.py:168-200);
+    returns its B7 launches."""
+    grid = Grid2D(nx=MAIN_N, ny=MAIN_N)
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
+    total = 0
+
+    def run(steps):
+        nonlocal total
+        cw.LAUNCHES = 0
+        cw.SEG_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inviscid_burgers_implicit2d_skewed(
+            grid, w0, DT, steps, MU[0], MU[1], solve_dtype=F32,
+            snaps_dtype=F32, seg=SEG, seg_overlap=SEG_OVERLAP)
+        checksum = float(res.snaps.sum(dtype=F64))
+        elapsed = time.perf_counter() - t0
+        check(cw.SEG_LAUNCHES == res.total_newton_its > 0
+              and cw.LAUNCHES == 0,
+              f"main-seg: {cw.SEG_LAUNCHES} seg and {cw.LAUNCHES} exact "
+              f"launches for {res.total_newton_its} Newton iterations")
+        check(np.isfinite(checksum), "main-seg: trajectory not finite")
+        total += cw.SEG_LAUNCHES
+        return res, elapsed
+
+    run(WARM_STEPS)
+    rates, its = [], []
+    for _ in range(REPS):
+        res, elapsed = run(MEAS_STEPS)
+        rates.append(MEAS_STEPS / elapsed)
+        its.append(res.total_newton_its / MEAS_STEPS)
+    diff = rel_err(res.snaps[:, -1], exact_final)
+    check(diff < 1e-4, f"main-seg: final state rel {diff} vs the exact "
+          f"chain")
+    print(f"[main-seg] {MAIN_N}x{MAIN_N} seg={SEG} overlap={SEG_OVERLAP}, "
+          f"f32 solves, "
+          f"f64 Newton, f32 snapshots: {statistics.median(rates):.3f} "
+          f"steps/s (median of {REPS} x {MEAS_STEPS} steps; runs "
+          f"{', '.join(f'{r:.3f}' for r in rates)}), "
+          f"{statistics.median(its):.2f} Newton its/step, one B7 launch per "
+          f"iteration, final state rel {diff:.3e} vs the exact chain "
+          f"({card})")
+    return total
+
+
+def traj_bound(p6p, k, steps, b, its, evals, iters=rf.CG_ITERS):
+    """B6's bound for one launch, from the systems it built and the
+    updates it made."""
+    _, n_p, kp = p6p.shape
+    e = p6p.element_size()
+    nbytes = (p6p.numel() + n_p + b * n_p + b * k + b * steps * kp) * e
+    scalars = 12 * n_p * k
+    per_eval = scalars + 18 * n_p * k + gram_ops(2 * n_p, k)
+    cg_ops = iters * (2 * k * k + 10 * k)
+    ops = evals * per_eval + its * cg_ops + b * steps * scalars
+    return bound(nbytes, ops, p6p.dtype)
+
+
+def phase_traj_kernel(card, ctx):
+    """B6 against its plain version on the bench mesh layout, 50 steps,
+    1 and 9 trajectories, f32 and f64; returns {(b, dtype): numbers}."""
+    grid, mesh = ctx["grid"], ctx["mesh"]
+    hd = (0.5 * DT / grid.dx, 0.5 * DT / grid.dy)
+    blocks = rf.precompute_factored_blocks(mesh, ctx["ba"])
+    out = {}
+    for dtype in (F32, F64):
+        p6p, wgt_p = rf.precompute_pallas_system(blocks, ctx["sw32"],
+                                                 dtype=dtype)
+        n_p, k = p6p.shape[1], ctx["y0"].shape[0]
+        for b in (1, 9):
+            y0 = ctx["y0"].to(dtype).expand(b, -1).contiguous()
+            slbc = torch.stack([rf.traj_source(grid, mesh, DT, *mu, n_p,
+                                               dtype)
+                                for mu in SWEEP_MUS[:b]])
+            args = (p6p, y0, slbc, wgt_p, k, *hd, TRAJ_STEPS)
+            ys, its, evals = cg.gn_traj_cuda(*args)
+            plain_ms, want = cuda_ms_once(
+                lambda: gn.trajectory_hprom_ref(*args))
+            check(bool(torch.isfinite(ys).all()), "traj kernel not finite")
+            rel = rel_err(ys, want.ys)
+            abs_err = float((ys - want.ys).abs().max())
+            tol = 1e-10 if dtype == F64 else 1e-4
+            check(rel <= tol, f"traj kernel vs plain b={b} {dtype}: rel "
+                  f"{rel}")
+            if dtype == F64:
+                check(torch.equal(its, want.its),
+                      f"traj kernel its {its.tolist()} vs plain "
+                      f"{want.its.tolist()}")
+            ms = cuda_ms(lambda: cg.gn_traj_cuda(*args), calls=1)
+            bound_ms, bound_by = traj_bound(p6p, k, TRAJ_STEPS, b,
+                                            int(its.sum()),
+                                            int(evals.sum()))
+            print(f"[traj-kernel] {ROM_N}x{ROM_N} mesh layout "
+                  f"{tuple(p6p.shape)} {str(dtype)[6:]} {b} trajectories x "
+                  f"{TRAJ_STEPS} steps: rel {rel:.3e} max_abs "
+                  f"{abs_err:.3e} (tol {tol:g}), GN its {int(its.sum())} "
+                  f"(plain {int(want.its.sum())}), systems built "
+                  f"{int(evals.sum())}; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
+                  f"({bound_by}) ({card})")
+            out[(b, dtype)] = dict(max_abs_err=abs_err, rel_err=rel, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+    return out
+
+
+def phase_rom_traj(card, ctx, launches):
+    """pallas_traj_hprom (one launch a run) and tensor_hprom on the bench
+    mesh, against ecsw_hprom and the FOM."""
+    grid, mesh, y0 = ctx["grid"], ctx["mesh"], ctx["y0"]
+    steps = ROM_STEPS
+
+    def engine(label, fn, kernel=None):
+        return run_engine(f"{ROM_N}x{ROM_N} {label} f32", fn, kernel, steps,
+                          launches, ctx["hprom"], ctx["basis"], ctx["hdm"])
+
+    res = engine("pallas_traj_hprom unroll3", lambda: rf.pallas_traj_hprom(
+        grid, mesh, ctx["p6p"], ctx["wgt_p"], y0, DT, steps, *MU),
+        "gn_traj")
+    check(res.gn_evals == 1, "pallas_traj_hprom: not one launch per run")
+    t0 = time.perf_counter()
+    tens = rt.precompute_hprom_tensors(grid, mesh, ctx["sw32"], ctx["ba"], DT)
+    torch.cuda.synchronize()
+    print(f"[rom] {ROM_N}x{ROM_N} tensor_hprom operators: H "
+          f"{tuple(tens.h.shape)} in {time.perf_counter() - t0:.2f} s")
+    engine("tensor_hprom normal", lambda: rt.tensor_hprom(
+        grid, mesh, ctx["sw32"], y0, tens, DT, steps, *MU,
+        ls_method="normal"))
+
+
+def phase_sweep(card, ctx, gn_launches):
+    """The 9-point μ grid at 250^2: the HPROM sweeps for 500 steps and
+    the seg FOM sweep for 100 steps; returns the B7 launches."""
+    grid, mesh, y0 = ctx["grid"], ctx["mesh"], ctx["y0"]
+    sw32, ba = ctx["sw32"], ctx["ba"]
+    steps, n = ROM_STEPS, len(SWEEP_MUS)
+
+    def timed(fn):
+        reset_gn_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        check(bool(torch.isfinite(out).all()), "sweep not finite")
+        return out, time.perf_counter() - t0, gn_counts()
+
+    blocks = rf.precompute_factored_blocks(mesh, ba)
+
+    def single(engine, mu):
+        """The point's own run of the engine the sweep runs."""
+        if engine == "pallas_traj":
+            res = rf.pallas_traj_hprom(grid, mesh, ctx["p6p"], ctx["wgt_p"],
+                                       y0, DT, steps, *mu)
+        elif engine == "factored":
+            res = rf.factored_hprom(grid, mesh, sw32, y0, blocks, DT, steps,
+                                    *mu, ls_method="normal")
+        else:
+            res = ecsw_hprom(grid, mesh, sw32, y0, ba, DT, steps, *mu,
+                             ls_method="normal")
+        return res.red_coords
+
+    for engine, kw, reps in (("generic", dict(ls_method="normal"), 1),
+                             ("factored", dict(ls_method="normal"), 1),
+                             ("pallas_traj", dict(unroll_its=3), REPS)):
+        runs = [timed(lambda kw=kw: sweep_hprom(
+            grid, mesh, sw32, y0, ba, DT, steps, SWEEP_MUS, engine=engine,
+            **kw)) for _ in range(reps)]
+        red, _, counts = runs[-1]
+        check(tuple(red.shape) == (n, y0.shape[0], steps + 1),
+              f"sweep {engine}: shape {tuple(red.shape)}")
+        rate = statistics.median(n * steps / t for _, t, _ in runs)
+        line = (f"[sweep] {ROM_N}x{ROM_N} {n}-point sweep_hprom {engine} "
+                f"f32 x {steps} steps: {rate:.2f} aggregate steps/s "
+                f"(median of {reps}; runs "
+                f"{', '.join(f'{n * steps / t:.2f}' for _, t, _ in runs)})")
+        if engine == "pallas_traj":
+            check(counts == {**{k: 0 for k in GN_KERNELS}, "gn_traj": 1},
+                  f"pallas_traj sweep: launches {counts}, expected one B6")
+            gn_launches["gn_traj"] += counts["gn_traj"]
+            line += ", one B6 launch for all 9 points"
+        worst = max(rel_err(red[i], single(engine, mu))
+                    for i, mu in enumerate(SWEEP_MUS))
+        check(worst <= 1e-6, f"sweep {engine} vs single points: rel {worst}")
+        print(line + f", worst rel {worst:.1e} against the {n} single-point "
+              f"runs ({card})")
+
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
+    kw = dict(engine="skewed", solve_dtype=F32, snaps_dtype=F32, seg=SEG,
+              seg_overlap=SEG_OVERLAP)
+    sweep_fom(grid, w0, DT, WARM_STEPS, SWEEP_MUS[:1], **kw)
+    cw.LAUNCHES = 0
+    cw.SEG_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = sweep_fom(grid, w0, DT, SWEEP_FOM_STEPS, SWEEP_MUS, **kw)
+    check(bool(torch.isfinite(snaps).all()), "seg FOM sweep not finite")
+    elapsed = time.perf_counter() - t0
+    launches = cw.SEG_LAUNCHES
+    check(launches > 0 and cw.LAUNCHES == 0,
+          f"seg FOM sweep: {launches} seg and {cw.LAUNCHES} exact launches")
+    check(tuple(snaps.shape) == (n, grid.state_dim, SWEEP_FOM_STEPS + 1),
+          f"seg FOM sweep: shape {tuple(snaps.shape)}")
+    print(f"[sweep] {ROM_N}x{ROM_N} {n}-point sweep_fom skewed seg={SEG} x "
+          f"{SWEEP_FOM_STEPS} steps (f32 solves, f64 Newton): "
+          f"{n * SWEEP_FOM_STEPS / elapsed:.2f} aggregate steps/s, "
+          f"{launches} B7 launches ({launches / (n * SWEEP_FOM_STEPS):.2f} "
+          f"per step) ({card})")
+    return launches
+
+
 def main():
     card = phase_environment()
     phase_build()
     kern = phase_kernel_vs_plain(card)
+    seg_kern = phase_seg_kernel(card)
     phase_entry_step(card)
-    launches = phase_main_path(card)
+    launches, exact_final = phase_main_path(card)
     check(launches > 0, "the main path launched no wavefront kernel")
+    seg_launches = phase_main_seg(card, exact_final)
     phase_gpu_vs_cpu()
     gn_kern = phase_gn_kernels(card)
     gn_launches = {k: 0 for k in GN_KERNELS}
-    phase_rom_250(card, gn_launches)
+    ctx = phase_rom_250(card, gn_launches)
+    traj_kern = phase_traj_kernel(card, ctx)
+    phase_rom_traj(card, ctx, gn_launches)
+    seg_launches += phase_sweep(card, ctx, gn_launches)
+    del ctx
     phase_fine_prom(card, gn_launches)
     phase_ecsw_recipe(card, gn_launches)
+    check(seg_launches > 0, "the seg paths launched no segmented kernel")
     for k, v in gn_launches.items():
         check(v > 0, f"the ROM path launched no {k} kernel")
 
-    (err32, ms32, plain32), (err64, ms64, plain64) = kern[F32], kern[F64]
-    entries = [{
-        "name": "wavefront_solve",
-        "route": "cuda",
-        "source": "finitedifference_tpu_torch/csrc/wavefront.cu",
-        "replaces": "finitedifference_tpu/ops/pallas_wavefront.py:128",
-        "launches": launches,
-        "max_abs_err": err32,
-        "ms": ms32,
-        "plain_ms": plain32,
-        "max_abs_err_f64": err64,
-        "ms_f64": ms64,
-        "plain_ms_f64": plain64,
-    }]
+    def entry(name, source, replaces, n_launches, main, extra):
+        """A kernel's line: the main-path numbers in f32, the others
+        under suffixed keys. None of the seven is one PyTorch call, so
+        library_ms is null (PERF.md)."""
+        e = {"name": name, "route": "cuda",
+             "source": f"finitedifference_tpu_torch/csrc/{source}",
+             "replaces": f"finitedifference_tpu/ops/{replaces}",
+             "launches": n_launches, "library_ms": None}
+        e.update({key: main[key] for key in ("max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by")})
+        for suffix, numbers in extra.items():
+            e.update({f"{key}_{suffix}": v for key, v in numbers.items()})
+        return e
+
+    entries = [
+        entry("wavefront_solve", "wavefront.cu", "pallas_wavefront.py:128",
+              launches, kern[F32], {"f64": kern[F64]}),
+        entry("wavefront_seg", "wavefront.cu", "pallas_wavefront.py:238",
+              seg_launches, seg_kern[F32], {"f64": seg_kern[F64]}),
+    ]
     sources = {
-        "gn_full": ("finitedifference_tpu_torch/csrc/gn_full.cu",
-                    "finitedifference_tpu/ops/pallas_gn_full.py:108",
-                    FINE_N),
-        "gn_sampled_system": ("finitedifference_tpu_torch/csrc/gn_sampled.cu",
-                              "finitedifference_tpu/ops/pallas_gn.py:56",
-                              ROM_N),
-        "gn_sampled_step": ("finitedifference_tpu_torch/csrc/gn_sampled.cu",
-                            "finitedifference_tpu/ops/pallas_gn.py:128",
-                            ROM_N),
+        "gn_full": ("gn_full.cu", "pallas_gn_full.py:108", FINE_N),
+        "gn_sampled_system": ("gn_sampled.cu", "pallas_gn.py:56", ROM_N),
+        "gn_sampled_step": ("gn_sampled.cu", "pallas_gn.py:128", ROM_N),
     }
     for name, (source, replaces, n) in sources.items():
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": gn_launches[name],
-                 "layout": f"{n}x{n}"}
-        for dtype, suffix in ((F32, ""), (F64, "_f64")):
-            for key, value in gn_kern[name][(n, dtype)].items():
-                entry[key + suffix] = value
+        extra = {"f64": gn_kern[name][(n, F64)]}
         if name == "gn_full":
-            for dtype, suffix in ((F32, ""), (F64, "_f64")):
-                for key, value in gn_kern[name][(ROM_N, dtype)].items():
-                    entry[f"{key}{suffix}_{ROM_N}"] = value
-        entries.append(entry)
+            extra.update({f"{ROM_N}": gn_kern[name][(ROM_N, F32)],
+                          f"f64_{ROM_N}": gn_kern[name][(ROM_N, F64)]})
+        entries.append(entry(name, source, replaces, gn_launches[name],
+                             gn_kern[name][(n, F32)], extra))
+        entries[-1]["layout"] = f"{n}x{n}"
+    entries.append(entry("gn_traj", "gn_traj.cu", "pallas_gn.py:232",
+                         gn_launches["gn_traj"], traj_kern[(9, F32)],
+                         {"b1": traj_kern[(1, F32)],
+                          "f64": traj_kern[(9, F64)],
+                          "f64_b1": traj_kern[(1, F64)]}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

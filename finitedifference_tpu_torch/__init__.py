@@ -11,20 +11,25 @@ Ported so far:
 - the implicit full-order model: config, grid, ops/stencil,
   ops/wavefront, ops/skewed, ops/cuda_wavefront, fom;
 - the reduced models: precision, solvers, pod, snapshots, ops/sampled,
-  rom, ecsw (the NNLS recipe), rom_factored, with the Gauss-Newton
-  system kernels in ops/gn_full + ops/cuda_gn_full and ops/gn +
-  ops/cuda_gn;
+  rom, ecsw (the NNLS recipe), rom_factored, rom_tensor, with the
+  Gauss-Newton system kernels in ops/gn_full + ops/cuda_gn_full and
+  ops/gn + ops/cuda_gn, and the whole-trajectory kernel
+  (rom_factored.pallas_traj_hprom);
+- the μ sweeps: parallel/sweep (sweep_fom, sweep_lspg, sweep_hprom), with
+  the segmented wavefront solve behind the FOM's `seg > 0`;
 - convert, which carries grids, layouts, meshes, padded inputs, arrays
   and results across from the JAX package.
-Importing the package pins full-f32 matmuls (no TF32; precision.py).
-This package never imports jax.
+Entry points run on the CUDA device unless given CPU tensors or
+device="cpu" (device.py): arrays that are not tensors never land on the
+CPU by default. Importing the package pins full-f32 matmuls (no TF32;
+precision.py). This package never imports jax.
 """
 
 from finitedifference_tpu_torch import precision  # noqa: F401 (pins TF32 off)
 from finitedifference_tpu_torch.config import BurgersConfig, DEFAULT_CONFIG
 from finitedifference_tpu_torch.grid import Grid2D, make_2d_grid
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "BurgersConfig",

@@ -1,9 +1,11 @@
 """Carrying state across from the JAX package, without importing jax.
 
-Grids, layouts, sampled meshes, factored blocks and results are read
-field by field from any object that has the fields; arrays go through
-numpy. The FOM and the linear ROMs have no learned weights: the POD basis
-(and the padded layouts made from it) is the state carried across.
+Grids, layouts, sampled meshes, factored blocks, the tensor HPROM's
+operators and results are read field by field from any object that has
+the fields; arrays go through numpy onto the CUDA device unless a
+`device` is given (device="cpu" for the CPU). The FOM and the linear
+ROMs have no learned weights: the POD basis (and the padded layouts made
+from it) is the state carried across.
 """
 
 from __future__ import annotations
@@ -11,11 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import default_device
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops.sampled import SampledMesh
 from finitedifference_tpu_torch.ops.skewed import SkewedLayout
 from finitedifference_tpu_torch.rom import ROMResult
 from finitedifference_tpu_torch.rom_factored import FactoredBlocks
+from finitedifference_tpu_torch.rom_tensor import HPROMTensors
 
 
 def grid_from_jax(g) -> Grid2D:
@@ -33,8 +37,9 @@ def layout_from_jax(lay) -> SkewedLayout:
 
 def to_torch(a, device=None, dtype=None) -> torch.Tensor:
     """A copy of an array (numpy, or anything np.asarray takes) as a
-    tensor."""
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    tensor on `device` (default: the CUDA device)."""
+    return torch.tensor(np.asarray(a), dtype=dtype,
+                        device=device or default_device())
 
 
 _MESH_BOOL = ("has_west", "has_south", "is_left")
@@ -53,6 +58,13 @@ def blocks_from_jax(blocks, device=None, dtype=None) -> FactoredBlocks:
     """FactoredBlocks with the p6 array of `blocks`."""
     return FactoredBlocks(p6=to_torch(blocks.p6, device=device,
                                       dtype=dtype))
+
+
+def tensors_from_jax(tensors, device=None, dtype=None) -> HPROMTensors:
+    """HPROMTensors with the vs, h and basis_aug arrays of `tensors`."""
+    return HPROMTensors(*(to_torch(getattr(tensors, f), device=device,
+                                   dtype=dtype)
+                          for f in HPROMTensors._fields))
 
 
 def rom_result_from_jax(res, device=None) -> ROMResult:

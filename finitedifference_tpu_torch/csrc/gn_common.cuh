@@ -1,5 +1,7 @@
 // Shared passes of the Gauss-Newton system kernels (gn_full.cu, B3, and
-// gn_sampled.cu, B4 and B5), written by hand for Hopper (sm_90a).
+// gn_sampled.cu, B4 and B5), written by hand for Hopper (sm_90a), and the
+// block-wide masked CG that B5 and the trajectory kernel (gn_traj.cu, B6)
+// run on a reduced Gram.
 //
 // Every system kernel is the same four passes on the current stream:
 //   1. rows_dot:       s = B y, a GEMV over the basis rows (one warp a row);
@@ -170,6 +172,59 @@ cudaError_t reduce_partials(const TIn* partials, int n_chunks, int k1p,
   reduce_partials_kernel<TIn, TOut><<<blocks, kBlock, 0, st>>>(
       partials, n_chunks, k1p, out, ldo);
   return cudaGetLastError();
+}
+
+// Block-wide sum over kBlock threads; every thread gets the same value.
+template <typename T>
+__device__ T block_sum(T v, T* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();   // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T total = T(0);
+#pragma unroll
+  for (int w = 0; w < kBlock / 32; ++w) total += red[w];
+  return total;
+}
+
+// `iters` masked CG steps on g[:k, :k] x = -g[k, :k], with g (ldg x ldg,
+// symmetric, in TG) in global or shared memory, in T, by one block of
+// kBlock threads: thread i owns lane i (k < kBlock) and gets x_i (0 for
+// i >= k). The iterate freezes once the residual or the curvature falls
+// below the smallest normal number. p (kBlock) and red (kBlock / 32) are
+// shared scratch.
+template <typename T, typename TG>
+__device__ T masked_cg(const TG* g, int ldg, int k, int iters, T* p, T* red) {
+  const int i = threadIdx.x;
+  const bool own = i < k;
+  const T b = own ? -static_cast<T>(g[static_cast<long long>(k) * ldg + i])
+                  : T(0);
+  T x = T(0), r = b;
+  p[i] = b;
+  T rs = block_sum(b * b, red);
+  const T tiny = tiny_normal<T>();
+  for (int it = 0; it < iters; ++it) {
+    __syncthreads();   // p from the previous update is visible
+    T gp = T(0);
+    if (own) {
+#pragma unroll 8
+      for (int j = 0; j < k; ++j)
+        gp += static_cast<T>(g[static_cast<long long>(j) * ldg + i]) * p[j];
+    }
+    const T pi = p[i];
+    const T denom = block_sum(pi * gp, red);
+    const bool live = rs > tiny && denom > tiny;
+    const T alpha = live ? rs / denom : T(0);
+    x += alpha * pi;
+    r -= alpha * gp;
+    const T rs_new = block_sum(r * r, red);
+    const T beta = live ? rs_new / rs : T(0);
+    p[i] = r + beta * pi;
+    rs = rs_new;
+  }
+  return own ? x : T(0);
 }
 
 }  // namespace fdgn

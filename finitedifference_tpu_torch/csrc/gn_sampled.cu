@@ -86,21 +86,6 @@ sampled_rows_kernel(const T* __restrict__ p6, int kp,
   a[(n_p + i) * k1p + l] = av;
 }
 
-// Block-wide sum over kBlock threads; every thread gets the same value.
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();   // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T total = T(0);
-#pragma unroll
-  for (int w = 0; w < kBlock / 32; ++w) total += red[w];
-  return total;
-}
-
 // One CTA: masked CG on the reduced Gram g (ldg x ldg, float64, symmetric),
 // in T. Thread i owns lane i; k < kBlock, ldo <= kBlock.
 template <typename T>
@@ -110,34 +95,9 @@ cg_kernel(const double* __restrict__ g, int ldg, int k, int iters,
   __shared__ T p[kBlock];
   __shared__ T red[kBlock / 32];
   const int i = threadIdx.x;
-  const bool own = i < k;
-  const T b = own ? -static_cast<T>(g[static_cast<long long>(k) * ldg + i])
-                  : T(0);
-  T x = T(0), r = b;
-  p[i] = b;
-  T rs = block_sum(b * b, red);
-  const T tiny = fdgn::tiny_normal<T>();
-  for (int it = 0; it < iters; ++it) {
-    __syncthreads();   // p from the previous update is visible
-    T gp = T(0);
-    if (own) {
-#pragma unroll 8
-      for (int j = 0; j < k; ++j)
-        gp += static_cast<T>(g[static_cast<long long>(j) * ldg + i]) * p[j];
-    }
-    const T pi = p[i];
-    const T denom = block_sum(pi * gp, red);
-    const bool live = rs > tiny && denom > tiny;
-    const T alpha = live ? rs / denom : T(0);
-    x += alpha * pi;
-    r -= alpha * gp;
-    const T rs_new = block_sum(r * r, red);
-    const T beta = live ? rs_new / rs : T(0);
-    p[i] = r + beta * pi;
-    rs = rs_new;
-  }
+  const T x = fdgn::masked_cg<T, double>(g, ldg, k, iters, p, red);
   if (i < ldo) {
-    out[i] = own ? x : T(0);
+    out[i] = x;
     out[ldo + i] =
         i == 0 ? sqrt(static_cast<T>(g[static_cast<long long>(k) * ldg + k]))
                : T(0);

@@ -49,6 +49,28 @@
 // Measured on an H100 SXM (700 W) at 750^2 (PERF.md): one thread per row
 // runs in half the time of two rows per thread; a two-diagonal prefetch and
 // a reciprocal intrinsic gained nothing.
+//
+// fd_wavefront_solve_seg_* (B7) replaces
+// finitedifference_tpu/ops/pallas_wavefront.py::_make_kernel_seg, the
+// overlapping-segment approximate solve behind `seg > 0`. The chain is cut
+// into n_seg segments of seg_len = ceil(nd_pad / n_seg) diagonals; segment g
+// owns diagonals [g*seg_len, (g+1)*seg_len) and starts from a zero carry at
+// diagonal g*seg_len - overlap, so the coupling between diagonals, which is
+// contractive (rho ~ CFL / (1 + CFL)), leaves a truncation error ~rho^overlap
+// at its first owned diagonal; segment 0 is exact. Warm-up diagonals are
+// computed and not written.
+//
+// What bounds it: the same latency as B1, now a chain of seg_len + overlap
+// steps (256 instead of 1536 at 750^2 with n_seg = 8, overlap = 64) that
+// runs on n_seg SMs at once; the bytes (each input diagonal read by at most
+// two segments) stay far below the card's rate.
+//
+// How the design answers it: the TPU kernel packed the segments into
+// (j_pad, n_seg, ny_pad) slabs to fill its sublanes; here each segment is
+// one CTA running B1's per-diagonal step on the (nd_pad, ny_pad) arrays as
+// they are, so no pack or unpack copy is needed. Both are one kernel
+// template; B1 is its SEG = false instance, compiled without the segment
+// bounds, so the exact solve keeps its own code.
 
 #include <cuda_runtime.h>
 
@@ -60,13 +82,15 @@ constexpr int kMaxThreadsOneRow = 1024;   // RPT == 1
 constexpr int kMaxThreadsRows = 512;      // RPT > 1: room for 128 registers
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-template <typename T, int RPT>
+// SEG = false is B1: one CTA, the whole chain, every diagonal written.
+template <typename T, int RPT, bool SEG>
 __global__ void __launch_bounds__(RPT == 1 ? kMaxThreadsOneRow
                                            : kMaxThreadsRows)
 wavefront_kernel(const T* __restrict__ su, const T* __restrict__ sv,
                  const T* __restrict__ sfu, const T* __restrict__ sfv,
                  T* __restrict__ sdu, T* __restrict__ sdv,
-                 int nx, int ny, int nd_pad, int ny_pad, T kx, T ky) {
+                 int nx, int ny, int nd_pad, int ny_pad, T kx, T ky,
+                 int seg_len, int overlap) {
   // [2 buffers][4 carries: du, dv, u, v][ny_pad]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* carry = reinterpret_cast<T*>(smem_raw);
@@ -76,29 +100,36 @@ wavefront_kernel(const T* __restrict__ su, const T* __restrict__ sv,
   const T zero = T(0);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
+  // this CTA's segment: owned diagonals [d_own, d_end), warm-up from d_begin
+  const int d_own = SEG ? blockIdx.x * seg_len : 0;
+  const int d_begin = SEG && d_own - overlap > 0 ? d_own - overlap : 0;
+  const int d_end =
+      SEG && d_own + seg_len < nd_pad ? d_own + seg_len : nd_pad;
+  if (SEG && d_own >= d_end) return;   // a trailing segment owns nothing
 
   T du_p[RPT], dv_p[RPT], u_p[RPT], v_p[RPT];   // diagonal d-1, own rows
   T u_n[RPT], v_n[RPT], fu_n[RPT], fv_n[RPT];   // prefetched diagonal d
 
-  // buffer 1 stands for diagonal -1, which is all zero
+  // the buffer of diagonal d_begin - 1 holds the zero carry
   for (int i = tid; i < 4 * ny_pad; i += nthreads) {
-    carry[4 * ny_pad + i] = zero;
+    carry[((d_begin + 1) & 1) * 4 * ny_pad + i] = zero;
   }
+  const size_t first = static_cast<size_t>(d_begin) * ny_pad;
 #pragma unroll
   for (int j = 0; j < RPT; ++j) {
     const int r = tid + j * nthreads;
     du_p[j] = dv_p[j] = u_p[j] = v_p[j] = zero;
     u_n[j] = v_n[j] = fu_n[j] = fv_n[j] = zero;
     if (r < ny_pad) {
-      u_n[j] = su[r];
-      v_n[j] = sv[r];
-      fu_n[j] = sfu[r];
-      fv_n[j] = sfv[r];
+      u_n[j] = su[first + r];
+      v_n[j] = sv[first + r];
+      fu_n[j] = sfu[first + r];
+      fv_n[j] = sfv[first + r];
     }
   }
   __syncthreads();
 
-  for (int d = 0; d < nd_pad; ++d) {
+  for (int d = d_begin; d < d_end; ++d) {
     const T* prev = carry + ((d + 1) & 1) * 4 * ny_pad;
     T* cur = carry + (d & 1) * 4 * ny_pad;
     const size_t row = static_cast<size_t>(d) * ny_pad;
@@ -116,7 +147,7 @@ wavefront_kernel(const T* __restrict__ su, const T* __restrict__ sv,
       fv[j] = fv_n[j];
       du_s[j] = dv_s[j] = u_s[j] = v_s[j] = zero;
       if (r < ny_pad) {
-        if (d + 1 < nd_pad) {
+        if (d + 1 < d_end) {
           u_n[j] = su[next + r];
           v_n[j] = sv[next + r];
           fu_n[j] = sfu[next + r];
@@ -151,8 +182,10 @@ wavefront_kernel(const T* __restrict__ su, const T* __restrict__ sv,
         du = (b22 * rhs_u - b12 * rhs_v) * inv_det;
         dv = (b11 * rhs_v - b21 * rhs_u) * inv_det;
       }
-      sdu[row + r] = du;
-      sdv[row + r] = dv;
+      if (!SEG || d >= d_own) {
+        sdu[row + r] = du;
+        sdv[row + r] = dv;
+      }
       cur[r] = du;
       cur[ny_pad + r] = dv;
       cur[2 * ny_pad + r] = u[j];
@@ -166,30 +199,33 @@ wavefront_kernel(const T* __restrict__ su, const T* __restrict__ sv,
   }
 }
 
-template <typename T, int RPT>
+template <typename T, int RPT, bool SEG>
 cudaError_t launch_rpt(const T* su, const T* sv, const T* sfu, const T* sfv,
                        T* sdu, T* sdv, int nx, int ny, int nd_pad, int ny_pad,
-                       T kx, T ky, int threads, size_t smem,
-                       cudaStream_t stream) {
-  auto kernel = wavefront_kernel<T, RPT>;
+                       T kx, T ky, int n_seg, int seg_len, int overlap,
+                       int threads, size_t smem, cudaStream_t stream) {
+  auto kernel = wavefront_kernel<T, RPT, SEG>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<1, threads, smem, stream>>>(su, sv, sfu, sfv, sdu, sdv, nx, ny,
-                                       nd_pad, ny_pad, kx, ky);
+  kernel<<<n_seg, threads, smem, stream>>>(su, sv, sfu, sfv, sdu, sdv, nx,
+                                           ny, nd_pad, ny_pad, kx, ky,
+                                           seg_len, overlap);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SEG>
 int launch(const void* su, const void* sv, const void* sfu, const void* sfv,
            void* sdu, void* sdv, int nx, int ny, int nd_pad, int ny_pad,
-           T kx, T ky, void* stream) {
-  if (nx < 1 || ny < 1 || ny > ny_pad || nd_pad < 1) {
+           T kx, T ky, int n_seg, int overlap, void* stream) {
+  if (nx < 1 || ny < 1 || ny > ny_pad || nd_pad < 1 || n_seg < 1 ||
+      n_seg > nd_pad || overlap < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int seg_len = (nd_pad + n_seg - 1) / n_seg;
   const int rpt = ny_pad <= kMaxThreadsOneRow       ? 1
                   : ny_pad <= 4 * kMaxThreadsRows   ? 4
                   : ny_pad <= 8 * kMaxThreadsRows   ? 8
@@ -207,16 +243,19 @@ int launch(const void* su, const void* sv, const void* sfu, const void* sfv,
   cudaError_t err;
   switch (rpt) {
     case 1:
-      err = launch_rpt<T, 1>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, threads, smem, s);
+      err = launch_rpt<T, 1, SEG>(a, b, c, e, o1, o2, nx, ny, nd_pad,
+                                  ny_pad, kx, ky, n_seg, seg_len, overlap,
+                                  threads, smem, s);
       break;
     case 4:
-      err = launch_rpt<T, 4>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, threads, smem, s);
+      err = launch_rpt<T, 4, SEG>(a, b, c, e, o1, o2, nx, ny, nd_pad,
+                                  ny_pad, kx, ky, n_seg, seg_len, overlap,
+                                  threads, smem, s);
       break;
     default:
-      err = launch_rpt<T, 8>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, threads, smem, s);
+      err = launch_rpt<T, 8, SEG>(a, b, c, e, o1, o2, nx, ny, nd_pad,
+                                  ny_pad, kx, ky, n_seg, seg_len, overlap,
+                                  threads, smem, s);
   }
   return static_cast<int>(err);
 }
@@ -231,16 +270,36 @@ int fd_wavefront_solve_f32(const void* su, const void* sv, const void* sfu,
                            const void* sfv, void* sdu, void* sdv, int nx,
                            int ny, int nd_pad, int ny_pad, float kx, float ky,
                            void* stream) {
-  return launch<float>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad, ny_pad, kx,
-                       ky, stream);
+  return launch<float, false>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
+                              ny_pad, kx, ky, 1, 0, stream);
 }
 
 int fd_wavefront_solve_f64(const void* su, const void* sv, const void* sfu,
                            const void* sfv, void* sdu, void* sdv, int nx,
                            int ny, int nd_pad, int ny_pad, double kx,
                            double ky, void* stream) {
-  return launch<double>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad, ny_pad,
-                        kx, ky, stream);
+  return launch<double, false>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
+                               ny_pad, kx, ky, 1, 0, stream);
+}
+
+// The overlapping-segment solve: n_seg CTAs, each owning ceil(nd_pad /
+// n_seg) diagonals after `overlap` warm-up diagonals from a zero carry.
+int fd_wavefront_solve_seg_f32(const void* su, const void* sv,
+                               const void* sfu, const void* sfv, void* sdu,
+                               void* sdv, int nx, int ny, int nd_pad,
+                               int ny_pad, float kx, float ky, int n_seg,
+                               int overlap, void* stream) {
+  return launch<float, true>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
+                             ny_pad, kx, ky, n_seg, overlap, stream);
+}
+
+int fd_wavefront_solve_seg_f64(const void* su, const void* sv,
+                               const void* sfu, const void* sfv, void* sdu,
+                               void* sdv, int nx, int ny, int nd_pad,
+                               int ny_pad, double kx, double ky, int n_seg,
+                               int overlap, void* stream) {
+  return launch<double, true>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
+                              ny_pad, kx, ky, n_seg, overlap, stream);
 }
 
 const char* fd_cuda_error_string(int code) {

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops.stencil import (
     apply_jacobian,
@@ -51,7 +52,7 @@ def ecsw_training_matrix(grid: Grid2D, snaps, prev_snaps, basis,
     basis, as many snapshots per pass as keep one (batch, k, n)
     temporary near BATCH_VALUES values.
     """
-    basis = torch.as_tensor(basis)
+    basis = as_tensor(basis)
     device = basis.device
     snaps = torch.as_tensor(snaps, device=device)
     prev_snaps = torch.as_tensor(prev_snaps, device=device)

@@ -8,7 +8,8 @@ ops/skewed.py), and the explicit forward-Euler stepper.
 
 The time and Newton loops are Python loops. Each Newton iteration reads
 one boolean back from the device to decide whether to stop. The device
-of the initial state decides where everything runs: on the CPU the
+of the initial state decides where everything runs (an initial state
+that is not a tensor goes to the CUDA device, device.py): on the CPU the
 linear solve is the plain diagonal loop, on a CUDA device it is the
 hand-written wavefront kernel (ops/cuda_wavefront.py).
 """
@@ -19,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops import skewed as sk
 from finitedifference_tpu_torch.ops.stencil import (
@@ -120,7 +122,7 @@ def inviscid_burgers_implicit2d(grid: Grid2D, w0, dt, num_steps, mu1, mu2,
     reference's layout. `snaps_dtype` stores the trajectory in a narrower
     dtype (e.g. f32) while solving in w0's dtype.
     """
-    w0 = torch.as_tensor(w0)
+    w0 = as_tensor(w0)
     snaps = torch.empty((num_steps + 1, w0.numel()),
                         dtype=snaps_dtype or w0.dtype, device=w0.device)
     snaps[0] = w0
@@ -158,7 +160,12 @@ def inviscid_burgers_implicit2d_skewed(
     updates, f32 solves. That is the configuration the JAX package
     benchmarks: its Pallas path always solves in f32 and ignores
     solve_dtype. `block` only sets the padding of the diagonal axis.
-    `seg > 0` (the overlapping-segment approximate solve) is not ported.
+
+    `seg > 0` solves with the overlapping-segment approximation instead
+    (ops/skewed.solve_skewed_seg: `seg` segments, each warmed up over
+    `seg_overlap` diagonals; on a CUDA device one kernel launch per
+    Newton iteration, one CTA per segment). Its truncation error
+    ~rho^seg_overlap makes Newton inexact; the stopping rules absorb it.
 
     Semantics match inviscid_burgers_implicit2d (same stopping rules);
     returns unskewed snapshots.
@@ -169,11 +176,7 @@ def inviscid_burgers_implicit2d_skewed(
     defined at the step-start state), but the predictor's O(dt^2) initial
     residual saves about one Newton iteration per step.
     """
-    if seg > 0:
-        raise NotImplementedError(
-            "seg > 0 needs the overlapping-segment wavefront kernel "
-            "(pallas_wavefront.py::_make_kernel_seg, B7), not yet ported")
-    w0 = torch.as_tensor(w0)
+    w0 = as_tensor(w0)
     dtype, device = w0.dtype, w0.device
     if relnorm_cutoff is None:
         relnorm_cutoff = _default_cutoff(dtype)
@@ -190,8 +193,12 @@ def inviscid_burgers_implicit2d_skewed(
 
     def solve(u, v, ru, rv):
         sdt = solve_dtype or dtype
-        du, dv = sk.solve_skewed(u.to(sdt), v.to(sdt), ru.to(sdt),
-                                 rv.to(sdt), dt, grid, lay)
+        args = (u.to(sdt), v.to(sdt), ru.to(sdt), rv.to(sdt), dt, grid, lay)
+        if seg > 0:
+            du, dv = sk.solve_skewed_seg(*args, n_seg=seg,
+                                         overlap=seg_overlap)
+        else:
+            du, dv = sk.solve_skewed(*args)
         return du.to(dtype), dv.to(dtype)
 
     def norm2(ru, rv):
@@ -256,7 +263,7 @@ def inviscid_burgers_implicit2d_skewed(
 def inviscid_burgers_explicit2d(grid: Grid2D, w0, dt, num_steps, mu1, mu2):
     """Forward-Euler explicit stepper; the full trajectory
     (2n, num_steps+1)."""
-    w0 = torch.as_tensor(w0)
+    w0 = as_tensor(w0)
     # built with dt=1 so they are the *rates*; scaled by dt below
     src = source_term(grid, mu2, 1.0, dtype=w0.dtype, device=w0.device)
     lbc = inflow_bc_term(grid, mu1, 1.0, dtype=w0.dtype, device=w0.device)

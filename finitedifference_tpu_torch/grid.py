@@ -17,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import default_device
+
 
 def default_float() -> torch.dtype:
     """torch's default floating dtype (float32 unless changed)."""
@@ -49,14 +51,17 @@ class Grid2D:
         return 2 * self.n_cells
 
     def xc(self, dtype=None, device=None) -> torch.Tensor:
-        """Cell-center x coordinates, shape (nx,)."""
+        """Cell-center x coordinates, shape (nx,), on `device` (default:
+        the CUDA device)."""
         edges = torch.linspace(self.x_low, self.x_up, self.nx + 1,
-                               dtype=dtype or default_float(), device=device)
+                               dtype=dtype or default_float(),
+                               device=device or default_device())
         return 0.5 * (edges[1:] + edges[:-1])
 
     def yc(self, dtype=None, device=None) -> torch.Tensor:
         edges = torch.linspace(self.y_low, self.y_up, self.ny + 1,
-                               dtype=dtype or default_float(), device=device)
+                               dtype=dtype or default_float(),
+                               device=device or default_device())
         return 0.5 * (edges[1:] + edges[:-1])
 
     def grid_points(self):
@@ -67,9 +72,10 @@ class Grid2D:
         return gx, gy
 
     def initial_state(self, dtype=None, device=None) -> torch.Tensor:
-        """w0 = 1 everywhere, flat (2*nx*ny,)."""
+        """w0 = 1 everywhere, flat (2*nx*ny,), on `device` (default: the
+        CUDA device)."""
         return torch.ones(self.state_dim, dtype=dtype or default_float(),
-                          device=device)
+                          device=device or default_device())
 
     # --- layout helpers -------------------------------------------------
     def split_fields(self, w: torch.Tensor):

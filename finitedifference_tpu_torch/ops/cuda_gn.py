@@ -1,17 +1,20 @@
 """Wrappers of the hand-written sampled-mesh Gauss-Newton kernels
-(csrc/gn_sampled.cu).
+(csrc/gn_sampled.cu, csrc/gn_traj.cu).
 
 gn_system_cuda replaces finitedifference_tpu/ops/pallas_gn.py::
 _make_kernel (B4): the weighted (kp, kp) Gram extension of the factored
 HPROM system on the ECSW mesh. gn_step_cuda replaces
 pallas_gn.py::_make_step_kernel (B5): the same system, then a masked CG
 on the device, giving (dy, ||W r||) for one fused Gauss-Newton
-iteration. Both run in float32 or float64. Their plain versions are
-ops/gn.gn_system_ref and ops/gn.gn_step_ref.
+iteration. gn_traj_cuda replaces pallas_gn.py::_make_traj_kernel (B6):
+whole HPROM trajectories, every step and every Gauss-Newton iteration,
+one CTA per trajectory, all in one launch. All run in float32 or
+float64. Their plain versions are ops/gn.gn_system_ref, gn_step_ref and
+trajectory_hprom_ref.
 
-SYSTEM_LAUNCHES and STEP_LAUNCHES count the two kernels' launches in
-this process (one per call), so a run can show that its main path went
-through them.
+SYSTEM_LAUNCHES, STEP_LAUNCHES and TRAJ_LAUNCHES count the kernels'
+launches in this process (one per call), so a run can show that its main
+path went through them.
 """
 
 from __future__ import annotations
@@ -31,9 +34,14 @@ from finitedifference_tpu_torch.ops.cuda_gn_full import gram_chunks, live_lanes
 
 SYSTEM_LAUNCHES = 0
 STEP_LAUNCHES = 0
+TRAJ_LAUNCHES = 0
 
 # the CG runs one CTA with one thread per lane (csrc/gn_sampled.cu)
 MAX_STEP_LANES = 256
+# live lanes k1p = round_up(k + 1, 64) of the trajectory kernel, whose CTA
+# holds the (k1p, k1p) Gram in shared memory: summed in float64 up to 128
+# lanes, in float32 at 192 (float32 only); 227 KB hold no more
+MAX_TRAJ_LANES = {torch.float32: 192, torch.float64: 128}
 
 @functools.cache
 def _kernel(kind: str, dtype):
@@ -43,6 +51,15 @@ def _kernel(kind: str, dtype):
     return symbol(f"fd_gn_sampled_{kind}_{suffix}",
                   [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
                   + [scalar, scalar] + tail + [ctypes.c_void_p])
+
+
+@functools.cache
+def _traj_kernel(dtype):
+    suffix, scalar = SCALARS[dtype]
+    return symbol(f"fd_gn_traj_{suffix}",
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                  + [scalar, scalar] + [ctypes.c_int] * 3
+                  + [scalar, scalar, ctypes.c_void_p])
 
 
 def _prepare(p6p, y, cp, wgt_p, k):
@@ -119,3 +136,64 @@ def gn_step_cuda(p6p, y, cp, wgt_p, k: int, hdx: float, hdy: float, *,
     check_launch(rc, "gn_sampled_step")
     STEP_LAUNCHES += 1
     return out[0, :k], out[1, 0]
+
+
+def gn_traj_cuda(p6p, y0, slbc_p, wgt_p, k: int, hdx: float, hdy: float,
+                 num_steps: int, *, unroll_its: int = 3,
+                 solve_iters: int = 24, relnorm_cutoff: float = 1e-5,
+                 min_delta: float = 0.1):
+    """Whole HPROM trajectories on padded CUDA tensors, in ONE launch.
+
+    p6p: (6, n_p, kp) blocks, float32 or float64; y0: (k,) or (B, k);
+    slbc_p: (n_p[, 1]) or (B, n_p[, 1]), the padded source + inflow term
+    of each trajectory; wgt_p: (n_p[, 1]); all contiguous, of one dtype,
+    on one device. Needs round_up(k + 1, 64) <= MAX_TRAJ_LANES[dtype].
+    Returns (ys (B?, num_steps, k), its (B?,), evals (B?,)): the reduced
+    coords after each step, the Gauss-Newton updates and the systems
+    built. Launches on the current stream and does not synchronise;
+    raises on any input the kernel does not take and on a refused launch.
+    """
+    global TRAJ_LAUNCHES
+    if not isinstance(p6p, torch.Tensor) or p6p.dim() != 3 \
+            or p6p.shape[0] != 6:
+        raise ValueError("p6p: expected a (6, n_p, kp) tensor")
+    dtype, device = p6p.dtype, p6p.device
+    if dtype not in SCALARS:
+        raise ValueError(f"the gn_traj kernel takes float32 or float64, "
+                         f"got {dtype}")
+    _, n_p, kp = p6p.shape
+    batched = isinstance(y0, torch.Tensor) and y0.dim() == 2
+    b = y0.shape[0] if batched else 1
+    check_tensor("p6p", p6p, device, dtype, [(6, n_p, kp)])
+    check_tensor("y0", y0, device, dtype, [(b, k)] if batched else [(k,)])
+    check_tensor("slbc_p", slbc_p, device, dtype,
+                 [(b, n_p, 1), (b, n_p)] if batched else [(n_p, 1), (n_p,)])
+    check_tensor("wgt_p", wgt_p, device, dtype, [(n_p,), (n_p, 1)])
+    k1p = live_lanes(k)
+    limit = MAX_TRAJ_LANES[dtype]
+    if not 0 < k < kp or k1p > limit:
+        raise ValueError(f"gn_traj kernel: k={k} with kp={kp} needs k < kp "
+                         f"and round_up(k + 1, 64) <= {limit} lanes in "
+                         f"{dtype} (the Gram in one CTA's shared memory)")
+    if b < 1 or 6 * n_p * kp >= 2 ** 31 or min(num_steps, unroll_its,
+                                                 solve_iters) < 0:
+        raise ValueError(f"gn_traj kernel: batch {b}, n_p={n_p}, "
+                         f"num_steps={num_steps}, unroll_its={unroll_its}, "
+                         f"solve_iters={solve_iters} out of range")
+    y = torch.zeros((b, kp), dtype=dtype, device=device)
+    y[:, :k] = y0
+    cp = torch.empty((b, 2, n_p), dtype=dtype, device=device)
+    ys = torch.empty((b, num_steps, kp), dtype=dtype, device=device)
+    stats = torch.empty((b, 2), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = _traj_kernel(dtype)(
+            p6p.data_ptr(), y.data_ptr(), slbc_p.data_ptr(),
+            wgt_p.data_ptr(), cp.data_ptr(), ys.data_ptr(),
+            stats.data_ptr(), b, n_p, kp, k, k1p, float(hdx), float(hdy),
+            int(num_steps), int(unroll_its), int(solve_iters),
+            float(relnorm_cutoff), float(min_delta), stream)
+    check_launch(rc, "gn_traj")
+    TRAJ_LAUNCHES += 1
+    out = (ys[..., :k], stats[:, 0].long(), stats[:, 1].long())
+    return out if batched else tuple(x[0] for x in out)

@@ -1,13 +1,15 @@
-"""Wrapper of the hand-written wavefront kernel (csrc/wavefront.cu).
+"""Wrappers of the hand-written wavefront kernels (csrc/wavefront.cu).
 
-The kernel replaces finitedifference_tpu/ops/pallas_wavefront.py::
-_make_kernel_reg: the exact triangular solve of the Newton Jacobian on
-padded skewed fields (nd_pad, ny_pad). It runs in float32 or float64 (the
-TPU kernel was float32 only because Mosaic has no f64). The plain version
-of the same function is ops/skewed.solve_skewed_ref.
+solve_skewed_cuda replaces finitedifference_tpu/ops/pallas_wavefront.py::
+_make_kernel_reg (B1): the exact triangular solve of the Newton Jacobian
+on padded skewed fields (nd_pad, ny_pad). solve_skewed_seg_cuda replaces
+pallas_wavefront.py::_make_kernel_seg (B7): the overlapping-segment
+approximate solve, one CTA per segment. Both run in float32 or float64
+(the TPU kernels were float32 only because Mosaic has no f64). Their
+plain versions are ops/skewed.solve_skewed_ref and solve_skewed_seg_ref.
 
-LAUNCHES counts the kernel's launches in this process, so a run can show
-that its main path went through the kernel.
+LAUNCHES and SEG_LAUNCHES count the two kernels' launches in this
+process, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from finitedifference_tpu_torch.ops._build import (
 )
 
 LAUNCHES = 0
+SEG_LAUNCHES = 0
 
 # limits of the kernel: one thread per row up to 1024 rows, then at most
 # 512 threads of 4 or 8 rows; 8 * ny_pad values of shared memory out of
@@ -33,11 +36,12 @@ MAX_NY_PAD = 512 * 8
 MAX_SHARED_BYTES = 232448
 
 @functools.cache
-def _kernel(dtype):
+def _kernel(dtype, seg: bool = False):
     suffix, scalar = SCALARS[dtype]
-    return symbol(f"fd_wavefront_solve_{suffix}",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                  + [scalar, scalar, ctypes.c_void_p])
+    name = f"fd_wavefront_solve_{'seg_' if seg else ''}{suffix}"
+    return symbol(name, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                  + [scalar, scalar] + [ctypes.c_int] * (2 * seg)
+                  + [ctypes.c_void_p])
 
 
 def _check(su, sv, sfu, sfv, grid, lay):
@@ -82,4 +86,32 @@ def solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay):
                 stream)
     check_launch(rc, "wavefront")
     LAUNCHES += 1
+    return sdu, sdv
+
+
+def solve_skewed_seg_cuda(su, sv, sfu, sfv, dt, grid, lay, *, n_seg: int,
+                          overlap: int):
+    """Overlapping-segment solve on padded skewed CUDA tensors: segment g
+    owns diagonals [g*seg_len, (g+1)*seg_len), seg_len = ceil(nd_pad /
+    n_seg), and warms up from a zero carry over the `overlap` diagonals
+    before them. Inputs and limits as solve_skewed_cuda; one CTA per
+    segment. Returns (sdu, sdv) with exact zeros off the band."""
+    global SEG_LAUNCHES
+    _check(su, sv, sfu, sfv, grid, lay)
+    if not 1 <= n_seg <= lay.nd_pad or overlap < 0:
+        raise ValueError(f"segmented wavefront kernel: n_seg={n_seg} must "
+                         f"be in [1, nd_pad={lay.nd_pad}] and overlap="
+                         f"{overlap} >= 0")
+    fn = _kernel(su.dtype, seg=True)
+    sdu = torch.empty_like(su)
+    sdv = torch.empty_like(su)
+    stream = torch.cuda.current_stream(su.device).cuda_stream
+    with torch.cuda.device(su.device):
+        rc = fn(su.data_ptr(), sv.data_ptr(), sfu.data_ptr(),
+                sfv.data_ptr(), sdu.data_ptr(), sdv.data_ptr(),
+                lay.nx, lay.ny, lay.nd_pad, lay.ny_pad,
+                float(0.5 * dt / grid.dx), float(0.5 * dt / grid.dy),
+                n_seg, overlap, stream)
+    check_launch(rc, "wavefront_seg")
+    SEG_LAUNCHES += 1
     return sdu, sdv

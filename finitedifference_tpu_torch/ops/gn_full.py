@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.ops.cuda_gn_full import gn_full_cuda
 
 KP = 128
@@ -52,7 +53,7 @@ def pad_field_full(f2d, grid, tile_rows: int = 4, dtype=torch.float32,
                    device=None) -> torch.Tensor:
     """(ny, nx) field -> flat (ny_pad * nx_pad,) with zero dead cells."""
     nx_pad, ny_pad, _ = full_layout(grid, tile_rows)
-    f2d = torch.as_tensor(f2d)
+    f2d = as_tensor(f2d, device)
     device = f2d.device if device is None else device
     out = torch.zeros((ny_pad, nx_pad), dtype=dtype, device=device)
     out[: grid.ny, : grid.nx] = f2d.to(device=device, dtype=dtype)
@@ -68,7 +69,7 @@ def pad_basis_full(basis, grid, tile_rows: int | None = None,
     device, in the dead-cell row layout, with k+1 padded to a multiple of
     128 lanes.
     """
-    basis = torch.as_tensor(basis)
+    basis = as_tensor(basis)
     n = grid.n_cells
     k = basis.shape[1]
     if tile_rows is None:

@@ -25,7 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from finitedifference_tpu_torch.grid import Grid2D
-from finitedifference_tpu_torch.ops.cuda_wavefront import solve_skewed_cuda
+from finitedifference_tpu_torch.ops.cuda_wavefront import (
+    solve_skewed_cuda,
+    solve_skewed_seg_cuda,
+)
 
 
 def skew(x: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
@@ -245,3 +248,76 @@ def solve_skewed(su, sv, sfu, sfv, dt, grid: Grid2D, lay: SkewedLayout):
     if su.device.type == "cpu":
         return solve_skewed_ref(su, sv, sfu, sfv, dt, grid, lay)
     return solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay)
+
+
+def segment_length(lay: SkewedLayout, n_seg: int) -> int:
+    """Diagonals owned by each of `n_seg` segments: ceil(nd_pad / n_seg)."""
+    if n_seg < 1:
+        raise ValueError(f"n_seg must be >= 1, got {n_seg}")
+    return -(-lay.nd_pad // n_seg)
+
+
+def solve_skewed_seg_ref(su, sv, sfu, sfv, dt, grid: Grid2D,
+                         lay: SkewedLayout, *, n_seg: int, overlap: int):
+    """Plain overlapping-segment solve on padded skewed inputs, in the
+    inputs' dtype and on their device.
+
+    Segment g owns diagonals [g*seg_len, (g+1)*seg_len) and starts from a
+    zero carry at diagonal g*seg_len - overlap (diagonals below 0 are
+    masked, so segment 0 is exact); its warm-up diagonals are discarded.
+    The coupling between diagonals is contractive, so the truncation
+    error is ~rho^overlap. One loop of seg_len + overlap steps runs all
+    segments at once on (n_seg, ny_pad) slabs. Entries off the band are
+    exactly 0; n_seg=1, overlap=0 is solve_skewed_ref.
+    """
+    if overlap < 0:
+        raise ValueError(f"overlap must be >= 0, got {overlap}")
+    seg_len = segment_length(lay, n_seg)
+    kx = 0.5 * dt / grid.dx
+    ky = 0.5 * dt / grid.dy
+    device = su.device
+    valid = _band(lay, device)
+    start = torch.arange(n_seg, device=device) * seg_len
+    zero = torch.zeros((), dtype=su.dtype, device=device)
+
+    sdu = torch.empty_like(sfu)
+    sdv = torch.empty_like(sfv)
+    du_p = dv_p = u_p = v_p = torch.zeros((n_seg, lay.ny_pad),
+                                          dtype=su.dtype, device=device)
+    for j in range(seg_len + overlap):
+        d = start - overlap + j                      # (n_seg,)
+        live = (d >= 0) & (d < lay.nd_pad)
+        dc = d.clamp(0, lay.nd_pad - 1)
+        band = valid[dc] & live[:, None]
+        u = torch.where(live[:, None], su[dc], zero)
+        v = torch.where(live[:, None], sv[dc], zero)
+        b11 = 1.0 + kx * u + 0.5 * ky * v
+        b12 = 0.5 * ky * u
+        b21 = 0.5 * kx * v
+        b22 = 1.0 + ky * v + 0.5 * kx * u
+        det = b11 * b22 - b12 * b21
+        u_s, v_s = _shift_down(u_p), _shift_down(v_p)
+        du_s, dv_s = _shift_down(du_p), _shift_down(dv_p)
+        rhs_u = sfu[dc] + kx * u_p * du_p + 0.5 * ky * (v_s * du_s
+                                                        + u_s * dv_s)
+        rhs_v = sfv[dc] + 0.5 * kx * (v_p * du_p + u_p * dv_p) \
+            + ky * v_s * dv_s
+        du_p = torch.where(band, (b22 * rhs_u - b12 * rhs_v) / det, zero)
+        dv_p = torch.where(band, (b11 * rhs_v - b21 * rhs_u) / det, zero)
+        own = live & (d >= start)
+        sdu[d[own]] = du_p[own]
+        sdv[d[own]] = dv_p[own]
+        u_p, v_p = u, v
+    return sdu, sdv
+
+
+def solve_skewed_seg(su, sv, sfu, sfv, dt, grid: Grid2D, lay: SkewedLayout,
+                     *, n_seg: int, overlap: int):
+    """Overlapping-segment solve on padded skewed inputs (nd_pad, ny_pad):
+    CPU tensors take solve_skewed_seg_ref, every other device the
+    segmented wavefront kernel, which raises on what it cannot run."""
+    if su.device.type == "cpu":
+        return solve_skewed_seg_ref(su, sv, sfu, sfv, dt, grid, lay,
+                                    n_seg=n_seg, overlap=overlap)
+    return solve_skewed_seg_cuda(su, sv, sfu, sfv, dt, grid, lay,
+                                 n_seg=n_seg, overlap=overlap)

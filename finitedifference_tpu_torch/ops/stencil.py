@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from finitedifference_tpu_torch.device import default_device
 from finitedifference_tpu_torch.grid import Grid2D, default_float
 
 
@@ -56,12 +57,14 @@ def ddy_upwind(f: torch.Tensor, dy) -> torch.Tensor:
 
 def _dtype_device(mu, dtype, device):
     """dtype/device of a per-mu constant: explicit arguments first, then
-    those of `mu` when it is a tensor, else torch's defaults."""
+    those of `mu` when it is a tensor, else torch's default dtype and the
+    CUDA device."""
     if isinstance(mu, torch.Tensor):
         dtype = dtype or (mu.dtype if mu.is_floating_point()
                           else default_float())
         device = device if device is not None else mu.device
-    return dtype or default_float(), device
+    return dtype or default_float(), \
+        device if device is not None else default_device()
 
 
 def source_term(grid: Grid2D, mu2, dt, dtype=None,

@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
+
 
 def _generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
@@ -50,7 +52,7 @@ def pod(snaps, num_modes: Optional[int] = None, method: str = "svd",
 
     Returns (U, s). method 'svd' = exact thin SVD; 'rsvd' = randomized,
     its sketch seeded with `random_state` (0 when None)."""
-    snaps = torch.as_tensor(snaps)
+    snaps = as_tensor(snaps)
     if method == "svd":
         u, s, _ = torch.linalg.svd(snaps, full_matrices=False)
         if num_modes is not None:
@@ -101,7 +103,7 @@ def randomized_svd_adaptive(a, tol: float = 1e-8,
     truncates singular values below tol * s_max (the reference's adaptive
     Halko class, randomized_singular_value_decomposition.py:36-220). Each
     trial draws a fresh sketch from `generator`."""
-    a = torch.as_tensor(a)
+    a = as_tensor(a)
     m, n = a.shape
     if generator is None:
         generator = _generator(a.device, 0)

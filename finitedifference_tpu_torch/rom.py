@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops.sampled import (
     augmented_state_indices,
@@ -77,7 +78,7 @@ def lspg_prom(grid: Grid2D, w0, dt, num_steps, mu1, mu2, basis,
 
     Per GN iteration: the full-grid residual and J@V stencils, then the
     tall-skinny least-squares solve (`ls_method`)."""
-    basis = torch.as_tensor(basis)
+    basis = as_tensor(basis)
     w0 = torch.as_tensor(w0, device=basis.device)
     dtype, device = w0.dtype, w0.device
     y0 = basis.T @ w0
@@ -101,7 +102,8 @@ def lspg_prom(grid: Grid2D, w0, dt, num_steps, mu1, mu2, basis,
 
 def reconstruct(basis, red_coords) -> torch.Tensor:
     """Full-state snapshots from reduced coordinates: (2n, T+1)."""
-    return hi_matmul(torch.as_tensor(basis), torch.as_tensor(red_coords))
+    basis = as_tensor(basis)
+    return hi_matmul(basis, as_tensor(red_coords, basis.device))
 
 
 def ecsw_hprom(grid: Grid2D, mesh, sample_weights, y0, basis_aug, dt,
@@ -120,7 +122,7 @@ def ecsw_hprom(grid: Grid2D, mesh, sample_weights, y0, basis_aug, dt,
                     basis (the caller projects).
     basis_aug:      (2*n_z, k) basis gathered at augmented rows.
     """
-    basis_aug = torch.as_tensor(basis_aug)
+    basis_aug = as_tensor(basis_aug)
     y0 = torch.as_tensor(y0, device=basis_aug.device)
     dtype = basis_aug.dtype
     src = sampled_source(mesh, grid, mu2, dt, dtype)
@@ -151,7 +153,7 @@ def prepare_hprom(grid: Grid2D, weights_full, basis):
     Returns (mesh, sample_weights, basis_aug) on the basis's device;
     sample_weights are float64, as the weight field is.
     """
-    basis = torch.as_tensor(basis)
+    basis = as_tensor(basis)
     if isinstance(weights_full, torch.Tensor):
         weights_full = weights_full.detach().cpu().numpy()
     weights_full = np.asarray(weights_full)

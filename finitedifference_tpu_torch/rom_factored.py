@@ -21,7 +21,11 @@ Engines, each with the stopping rules of rom.ecsw_hprom / rom.lspg_prom
                   device), with ls_method "normal", "cg" or "fused"
                   (the CG folded into the kernel call);
 - pallas_prom:    the FULL-grid LSPG PROM with the streaming system
-                  (ops/gn_full.py: csrc/gn_full.cu on a CUDA device).
+                  (ops/gn_full.py: csrc/gn_full.cu on a CUDA device);
+- pallas_traj_hprom: the whole HPROM trajectory, every step and
+                  iteration, in ONE kernel launch (ops/gn.trajectory_hprom:
+                  csrc/gn_traj.cu on a CUDA device), batched over μ by
+                  parallel/sweep.sweep_hprom.
 The names keep the JAX package's. The dynamic Gauss-Newton loop reads
 one boolean back per iteration; `unroll_its > 0` runs that many masked
 iterations per step instead, with no read-back until the end of the
@@ -35,9 +39,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.grid import Grid2D
-from finitedifference_tpu_torch.ops.gn import gn_step, gn_system, \
-    pad_factored_inputs
+from finitedifference_tpu_torch.ops.gn import (
+    gn_step,
+    gn_system,
+    pad_factored_inputs,
+    trajectory_hprom,
+)
 from finitedifference_tpu_torch.ops.gn_full import (
     _round_up,
     gn_full_first,
@@ -70,7 +79,7 @@ class FactoredBlocks(NamedTuple):
 def precompute_factored_blocks(mesh: SampledMesh,
                                basis_aug) -> FactoredBlocks:
     """Gather the six (n_s, k) stencil-position blocks once per mesh."""
-    basis_aug = torch.as_tensor(basis_aug)
+    basis_aug = as_tensor(basis_aug)
     n_z = mesh.n_aug
     bu, bv = basis_aug[:n_z, :], basis_aug[n_z:, :]
 
@@ -206,7 +215,7 @@ def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
     budget. The JAX package's `axis_name` (SPMD over the sampled cells)
     waits for parallel/ (ROADMAP).
     """
-    y0 = torch.as_tensor(y0)
+    y0 = as_tensor(y0)
     dtype, device = y0.dtype, y0.device
     p6 = blocks.p6.to(dtype=dtype, device=device)
     _, n_s, k = p6.shape
@@ -396,3 +405,46 @@ def pallas_prom(grid: Grid2D, vu_p, vv_p, dmask, y0, dt, num_steps,
         return y, it, ev + 1
 
     return _time_loop(y0, num_steps, step)
+
+
+def traj_source(grid: Grid2D, mesh, dt, mu1, mu2, n_p: int, dtype):
+    """The padded source + inflow term (n_p, 1) of one μ point: the only
+    input of the trajectory engine that depends on μ."""
+    src_lbc = sampled_source(mesh, grid, mu2, dt, dtype) \
+        + sampled_inflow_bc(mesh, grid, mu1, dt, dtype)
+    return F.pad(src_lbc, (0, n_p - mesh.n_sample))[:, None]
+
+
+def traj_hprom_batch(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
+                     mus, **kwargs):
+    """pallas_traj_hprom for every (mu1, mu2) row of `mus` in ONE launch:
+    returns (reduced coords (B, k, num_steps+1), GN updates (B,))."""
+    y0 = torch.as_tensor(y0, device=p6p.device).to(p6p.dtype)
+    n_p = p6p.shape[1]
+    slbc = torch.stack([traj_source(grid, mesh, dt, mu1, mu2, n_p,
+                                    p6p.dtype) for mu1, mu2 in mus])
+    y0b = y0.expand(len(slbc), -1).contiguous()
+    out = trajectory_hprom(p6p, y0b, slbc, wgt_p, y0.shape[0],
+                           float(0.5 * dt / grid.dx),
+                           float(0.5 * dt / grid.dy), int(num_steps),
+                           **kwargs)
+    red = torch.cat((y0b[:, None], out.ys), dim=1).transpose(1, 2)
+    return red, out.its
+
+
+def pallas_traj_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
+                      mu1, mu2, *, unroll_its: int = 3,
+                      solve_iters: int = 24, relnorm_cutoff: float = 1e-5,
+                      min_delta: float = 0.1) -> ROMResult:
+    """The whole HPROM time integration in ONE kernel launch, in p6p's
+    dtype: `unroll_its` masked Gauss-Newton iterations per step (the
+    stopping rules of factored_hprom's unrolled loop) with a
+    `solve_iters`-step CG, all inside csrc/gn_traj.cu on a CUDA device
+    (ops/gn.trajectory_hprom). ROMResult.gn_evals counts the launches: 1.
+    """
+    red, its = traj_hprom_batch(
+        grid, mesh, p6p, wgt_p, y0, dt, num_steps, [(mu1, mu2)],
+        unroll_its=unroll_its, solve_iters=solve_iters,
+        relnorm_cutoff=relnorm_cutoff, min_delta=min_delta)
+    return ROMResult(red_coords=red[0], total_gn_its=int(its[0]),
+                     gn_evals=1)

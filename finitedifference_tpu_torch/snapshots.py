@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.grid import Grid2D
 
 
@@ -71,7 +72,7 @@ def load_or_compute_snaps(mu, grid: Grid2D, w0, dt, num_steps,
         print(f"cached snapshot {snap_fn} has {cached.shape[1] - 1} steps "
               f"< requested {num_steps} — recomputing")
 
-    w0 = torch.as_tensor(w0)
+    w0 = as_tensor(w0)
     sd = snaps_dtype
     if sd is not None and not isinstance(sd, torch.dtype):
         sd = torch.from_numpy(np.zeros(0, np.dtype(sd))).dtype

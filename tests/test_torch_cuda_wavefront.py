@@ -1,4 +1,5 @@
-"""The hand-written wavefront kernel against its plain PyTorch version.
+"""The hand-written wavefront kernels, the exact solve (B1) and the
+overlapping-segment solve (B7), against their plain PyTorch versions.
 
 Tests marked `cuda` need an NVIDIA GPU and skip without one; on a machine
 with a card run them with
@@ -115,6 +116,77 @@ def test_skewed_trajectory_matches_cpu(cuda):
     assert float(gpu.max_final_relnorm) < 1e-12
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,n_seg,overlap", [
+    ((13, 5), 4, 16), ((750, 750), 8, 64), ((750, 750), 16, 64),
+    ((40, 1100), 4, 32), ((20, 2100), 16, 8), ((64, 64), 1, 0),
+    ((13, 5), 14, 0)])
+def test_seg_kernel_matches_plain(cuda, shape, n_seg, overlap, dtype, tol):
+    """B7 against solve_skewed_seg_ref: f32 within 1e-5, f64 within 1e-12
+    (rounding only), exact zeros off the band, one launch; ny_pad > 1024
+    in the 1100 and 2100 rows; n_seg = 1, overlap = 0 is B1; at (13, 5)
+    the last of 14 segments of 10 diagonals owns none of the 128."""
+    nx, ny = shape
+    grid = Grid2D(nx=nx, ny=ny)
+    lay = sk.make_layout(grid)
+    args = skewed_inputs(lay, dtype, cuda, seed=nx)
+    before = (cw.LAUNCHES, cw.SEG_LAUNCHES)
+    got = sk.solve_skewed_seg(*args, DT, grid, lay, n_seg=n_seg,
+                              overlap=overlap)
+    assert (cw.LAUNCHES, cw.SEG_LAUNCHES) == (before[0], before[1] + 1)
+    want = sk.solve_skewed_seg_ref(*args, DT, grid, lay, n_seg=n_seg,
+                                   overlap=overlap)
+    torch.cuda.synchronize()
+    off_band = ~sk.valid_mask(lay, torch.bool, cuda)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w))
+        assert rel <= tol
+        assert bool((g[off_band] == 0).all())
+    if n_seg == 1:
+        exact = cw.solve_skewed_cuda(*args, DT, grid, lay)
+        assert all(torch.equal(g, e) for g, e in zip(got, exact))
+
+
+@pytest.mark.cuda
+def test_seg_trajectory_matches_cpu(cuda):
+    """48^2 f64 seg trajectory on the card (B7 in every Newton iteration)
+    against the CPU run: rel < 1e-12, equal counts, one launch an
+    iteration."""
+    grid = Grid2D(nx=48, ny=48)
+    w0 = torch.ones(grid.state_dim, dtype=torch.float64)
+    kw = dict(seg=4, seg_overlap=16)
+    before = cw.SEG_LAUNCHES
+    gpu = inviscid_burgers_implicit2d_skewed(grid, w0.to(cuda), DT, 20,
+                                             4.75, 0.02, **kw)
+    launches = cw.SEG_LAUNCHES - before
+    cpu = inviscid_burgers_implicit2d_skewed(grid, w0, DT, 20, 4.75, 0.02,
+                                             **kw)
+    got = gpu.snaps.cpu().numpy()
+    want = cpu.snaps.numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-12
+    assert gpu.total_newton_its == cpu.total_newton_its == launches
+
+
+@pytest.mark.cuda
+def test_seg_dispatch_raises_on_what_the_kernel_does_not_take(cuda):
+    """A CUDA tensor the kernel cannot run raises; nothing falls back."""
+    grid = Grid2D(nx=8, ny=6)
+    lay = sk.make_layout(grid, block=8)
+    before = cw.SEG_LAUNCHES
+    half = skewed_inputs(lay, torch.float16, cuda)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        sk.solve_skewed_seg(*half, DT, grid, lay, n_seg=2, overlap=4)
+    args = skewed_inputs(lay, torch.float32, cuda)
+    with pytest.raises(ValueError, match="n_seg"):
+        sk.solve_skewed_seg(*args, DT, grid, lay, n_seg=lay.nd_pad + 1,
+                            overlap=4)
+    assert cw.SEG_LAUNCHES == before
+
+
 # ----------------------------------------------------------------------
 # anywhere
 # ----------------------------------------------------------------------
@@ -125,10 +197,12 @@ def test_cpu_tensor_raises():
     grid = Grid2D(nx=8, ny=6)
     lay = sk.make_layout(grid, block=8)
     args = skewed_inputs(lay, torch.float64, "cpu")
-    before = cw.LAUNCHES
+    before = (cw.LAUNCHES, cw.SEG_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         cw.solve_skewed_cuda(*args, DT, grid, lay)
-    assert cw.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cw.solve_skewed_seg_cuda(*args, DT, grid, lay, n_seg=2, overlap=4)
+    assert (cw.LAUNCHES, cw.SEG_LAUNCHES) == before
 
 
 def _imported_modules(path):

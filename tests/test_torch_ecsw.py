@@ -9,6 +9,8 @@ equality; the HPROM on the weights f64 1e-12 with equal Gauss-Newton
 counts.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +20,12 @@ from finitedifference_tpu import ecsw as jecsw
 from finitedifference_tpu import rom as jrom
 from finitedifference_tpu_torch import ecsw as tecsw
 from finitedifference_tpu_torch import rom as trom
-from finitedifference_tpu_torch.convert import grid_from_jax, to_torch
+from finitedifference_tpu_torch.convert import grid_from_jax
 from tests.test_ecsw import DT, MU, setup_problem
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 SOLVERS = [tecsw.nnls, tecsw.nnls_gram]
 SOLVER_IDS = ["nnls", "nnls_gram"]

@@ -1,6 +1,8 @@
 """The port's FOM (Newton step, trajectories, the skewed engine) against
 the JAX package on the CPU: same states, same Newton iteration counts."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,9 +14,12 @@ from finitedifference_tpu_torch import fom as tfom
 from finitedifference_tpu_torch.convert import (
     grid_from_jax,
     result_to_numpy,
-    to_torch,
 )
 from finitedifference_tpu_torch.ops import cuda_wavefront
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 MU = [4.75, 0.02]
 DT = 0.05
@@ -145,11 +150,31 @@ def test_explicit_trajectory():
 
 
 def test_segmented_solve_not_ported():
+    """seg > 0 is ported (B7): on CPU tensors it runs the plain segment
+    solve, launches no kernel and stays within the inexact-Newton bound
+    of the exact chain (tests/test_torch_seg.py holds it against JAX)."""
     _, tg = grids(8, 6)
-    with pytest.raises(NotImplementedError, match="B7"):
-        tfom.inviscid_burgers_implicit2d_skewed(
-            tg, torch.ones(tg.state_dim, dtype=torch.float64), DT, 2,
-            MU[0], MU[1], seg=4)
+    w0 = torch.ones(tg.state_dim, dtype=torch.float64)
+    seg = tfom.inviscid_burgers_implicit2d_skewed(tg, w0, DT, 2, MU[0],
+                                                  MU[1], seg=4, block=8)
+    exact = tfom.inviscid_burgers_implicit2d_skewed(tg, w0, DT, 2, MU[0],
+                                                    MU[1], block=8)
+    assert cuda_wavefront.SEG_LAUNCHES == 0
+    assert rel(seg.snaps.numpy(), exact.snaps.numpy()) < 1e-5
+
+
+def test_host_array_needs_a_card_or_cpu():
+    """A numpy w0 goes to the CUDA device, never silently to the CPU:
+    without a card the entry point raises; CPU tensors run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: numpy inputs run there")
+    _, tg = grids(8, 6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfom.inviscid_burgers_implicit2d_skewed(tg, np.ones(tg.state_dim),
+                                                DT, 1, MU[0], MU[1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tg.initial_state()
+    assert tg.initial_state(device="cpu").device.type == "cpu"
 
 
 def test_cpu_path_launches_no_kernel():

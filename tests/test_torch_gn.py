@@ -9,6 +9,8 @@ twins with equal Gauss-Newton counts. Tolerances: f32 Grams rtol 2e-4 /
 atol 3e-4, f32 trajectories rtol 5e-4 / atol 5e-6, f64 1e-12 relative.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +26,15 @@ from finitedifference_tpu_torch.convert import (
     blocks_from_jax,
     grid_from_jax,
     mesh_from_jax,
-    to_torch,
 )
 from finitedifference_tpu_torch.ops import gn as tgn
 from finitedifference_tpu_torch.rom import ecsw_hprom as tecsw
 from finitedifference_tpu_torch.rom import prepare_hprom as tprepare
 from tests.test_rom import DT, MU, setup_problem
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 F32, F64 = torch.float32, torch.float64
 TILE = 8
@@ -71,7 +76,7 @@ def test_blocks_and_padding_match_jax(mesh_problem):
     jb = jrf.precompute_factored_blocks(p["jmesh"], jnp.asarray(p["jba"]))
     tb = trf.precompute_factored_blocks(p["tmesh"], p["tba"])
     np.testing.assert_array_equal(tb.p6.numpy(), np.asarray(jb.p6))
-    np.testing.assert_array_equal(blocks_from_jax(jb).p6.numpy(),
+    np.testing.assert_array_equal(blocks_from_jax(jb, device="cpu").p6.numpy(),
                                   tb.p6.numpy())
     jp6p, jwgt, tp6p, twgt = padded_pair(p)
     assert tp6p.shape[1] // TILE >= 5       # several tiles
@@ -233,7 +238,7 @@ def test_pallas_hprom_f64_matches_generic(mesh_problem):
 def test_mesh_from_jax_round_trip(mesh_problem):
     """A JAX SampledMesh carried across equals the port's own build."""
     p = mesh_problem
-    m = mesh_from_jax(p["jmesh"])
+    m = mesh_from_jax(p["jmesh"], device="cpu")
     for f in m._fields:
         a, b = getattr(m, f), getattr(p["tmesh"], f)
         assert a.dtype == b.dtype and torch.equal(a, b), f

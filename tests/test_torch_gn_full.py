@@ -11,6 +11,8 @@ relative only (the dead-row check), f32 trajectories rtol 5e-4 /
 atol 5e-6, f64 1e-12 relative.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,11 +26,15 @@ from finitedifference_tpu.rom_factored import (
     precompute_prom_pallas as jprecompute,
 )
 from finitedifference_tpu_torch import rom_factored as trf
-from finitedifference_tpu_torch.convert import grid_from_jax, to_torch
+from finitedifference_tpu_torch.convert import grid_from_jax
 from finitedifference_tpu_torch.ops import gn_full as tgf
 from finitedifference_tpu_torch.ops import stencil as tst
 from finitedifference_tpu_torch.rom import lspg_prom as tlspg
 from tests.test_rom import DT, MU, setup_problem
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 F32, F64 = torch.float32, torch.float64
 
@@ -44,8 +50,8 @@ def slbc_pair(jgrid, tgrid):
     s2d = np.asarray(jst.source_term(jgrid, MU[1], DT, jnp.float32)) \
         + np.asarray(jst.inflow_bc_term(jgrid, MU[0], DT, jnp.float32))
     j = jnp.asarray(jgf.pad_field_full(s2d, jgrid, 4)[:, None])
-    t = (tst.source_term(tgrid, MU[1], DT, F32)
-         + tst.inflow_bc_term(tgrid, MU[0], DT, F32))
+    t = (tst.source_term(tgrid, MU[1], DT, F32, "cpu")
+         + tst.inflow_bc_term(tgrid, MU[0], DT, F32, "cpu"))
     return j, tgf.pad_field_full(t, tgrid, 4)[:, None]
 
 

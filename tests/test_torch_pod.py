@@ -3,6 +3,8 @@ to column sign, randomized SVD by subspace angle against the exact SVD
 (its torch.Generator sketch is not jax.random's), the same podsize
 truncations."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +12,10 @@ import torch
 
 from finitedifference_tpu import pod as jpod
 from finitedifference_tpu_torch import pod as tpod
-from finitedifference_tpu_torch.convert import to_torch
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 
 def decaying_matrix(m=300, n=80, decay=0.5, seed=0):

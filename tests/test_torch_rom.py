@@ -6,6 +6,8 @@ from two oracle trajectories) go through both packages. Tolerances: f64
 1e-12 relative; Gauss-Newton iteration counts equal.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,13 +25,16 @@ from finitedifference_tpu_torch.convert import (
     mesh_from_jax,
     result_to_numpy,
     rom_result_from_jax,
-    to_torch,
 )
 from finitedifference_tpu_torch.ops import sampled as tsm
 from finitedifference_tpu_torch.rom_factored import (
     precompute_prom_pallas as tprecompute,
 )
 from tests.test_rom import DT, MU, setup_problem
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 F64 = torch.float64
 
@@ -112,7 +117,7 @@ def test_ecsw_hprom_matches_jax(problem, mesh_problem, ls_method):
 
 def test_prepare_hprom_matches_jax(mesh_problem):
     weights, jmesh, jsw, jba, tmesh, tsw, tba = mesh_problem
-    carried = mesh_from_jax(jmesh)
+    carried = mesh_from_jax(jmesh, device="cpu")
     for f in tmesh._fields:
         a, b = getattr(tmesh, f), getattr(carried, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
@@ -156,7 +161,7 @@ def test_augmented_mesh_and_indices_match_jax(problem):
     sample = sample_cells(jg)
     np.testing.assert_array_equal(tsm.generate_augmented_mesh(tg, sample),
                                   jsm.generate_augmented_mesh(jg, sample))
-    tmesh = tsm.build_sampled_mesh(tg, sample)
+    tmesh = tsm.build_sampled_mesh(tg, sample, device="cpu")
     jmesh = jsm.build_sampled_mesh(jg, sample)
     for f in tmesh._fields:
         np.testing.assert_array_equal(getattr(tmesh, f).numpy(),
@@ -170,7 +175,7 @@ def test_augmented_mesh_and_indices_match_jax(problem):
 def test_sampled_residual_and_jv_match_jax(problem, seed):
     jg, tg, _, basis = problem
     sample = sample_cells(jg, seed)
-    tmesh = tsm.build_sampled_mesh(tg, sample)
+    tmesh = tsm.build_sampled_mesh(tg, sample, device="cpu")
     jmesh = jsm.build_sampled_mesh(jg, sample)
     idx = tsm.augmented_state_indices(tmesh, tg.n_cells).numpy()
     rng = np.random.default_rng(seed + 1)
@@ -257,7 +262,7 @@ def test_rom_result_round_trip(problem):
     jg, tg, w0, basis = problem
     want = jrom.lspg_prom(jg, jnp.asarray(w0), DT, 4, MU[0], MU[1],
                           jnp.asarray(basis))
-    got = rom_result_from_jax(want)
+    got = rom_result_from_jax(want, device="cpu")
     assert isinstance(got, trom.ROMResult)
     np.testing.assert_array_equal(got.red_coords.numpy(),
                                   np.asarray(want.red_coords))

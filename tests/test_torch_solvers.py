@@ -2,6 +2,8 @@
 CPU: the same least-squares solutions, and the same Gauss-Newton states,
 norms and iteration counts (f64 within 1e-12 relative)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +13,13 @@ from finitedifference_tpu import solvers as jsol
 from finitedifference_tpu.grid import Grid2D as JGrid2D
 from finitedifference_tpu.ops import stencil as jst
 from finitedifference_tpu_torch import solvers as tsol
-from finitedifference_tpu_torch.convert import grid_from_jax, to_torch
+from finitedifference_tpu_torch.convert import grid_from_jax
 from finitedifference_tpu_torch.ops import stencil as tst
 from finitedifference_tpu_torch.precision import precision_flags
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 MU = (4.75, 0.02)
 DT = 0.05

@@ -1,6 +1,8 @@
 """The port's grid and stencils against the JAX package and the scipy
 oracle (12x10 grid, non-square to catch x/y mixups, float64)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,8 +11,12 @@ import torch
 import oracle
 from finitedifference_tpu.grid import Grid2D as JGrid2D
 from finitedifference_tpu.ops import stencil as jst
-from finitedifference_tpu_torch.convert import grid_from_jax, to_torch
+from finitedifference_tpu_torch.convert import grid_from_jax
 from finitedifference_tpu_torch.ops import stencil as tst
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 MU = [4.75, 0.02]
 DT = 0.07
@@ -30,10 +36,10 @@ def states(seed, *shapes):
 def test_grid_coordinates_and_layout():
     jg, tg = grids()
     assert (tg.dx, tg.dy, tg.state_dim) == (jg.dx, jg.dy, jg.state_dim)
-    np.testing.assert_allclose(tg.xc(dtype=F64).numpy(),
+    np.testing.assert_allclose(tg.xc(dtype=F64, device="cpu").numpy(),
                                np.asarray(jg.xc(dtype=jnp.float64)),
                                rtol=0, atol=1e-13)
-    np.testing.assert_allclose(tg.yc(dtype=F64).numpy(),
+    np.testing.assert_allclose(tg.yc(dtype=F64, device="cpu").numpy(),
                                np.asarray(jg.yc(dtype=jnp.float64)),
                                rtol=0, atol=1e-13)
     (w,) = states(0, jg.state_dim)
@@ -42,18 +48,19 @@ def test_grid_coordinates_and_layout():
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(tg.merge_fields(tu, tv).numpy(), w)
-    assert tg.initial_state(dtype=F64).shape == (jg.state_dim,)
+    assert tg.initial_state(dtype=F64, device="cpu").shape == (jg.state_dim,)
 
 
 @pytest.mark.parametrize("mu", [(4.75, 0.02), (5.19, 0.026)])
 def test_source_and_inflow_terms(mu):
     jg, tg = grids()
     np.testing.assert_allclose(
-        tst.source_term(tg, mu[1], DT, dtype=F64).numpy(),
+        tst.source_term(tg, mu[1], DT, dtype=F64, device="cpu").numpy(),
         np.asarray(jst.source_term(jg, mu[1], DT, dtype=jnp.float64)),
         rtol=0, atol=1e-13)
     np.testing.assert_allclose(
-        tst.inflow_bc_term(tg, mu[0], DT, dtype=F64).numpy(),
+        tst.inflow_bc_term(tg, mu[0], DT, dtype=F64,
+                           device="cpu").numpy(),
         np.asarray(jst.inflow_bc_term(jg, mu[0], DT, dtype=jnp.float64)),
         rtol=0, atol=1e-13)
 

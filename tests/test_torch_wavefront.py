@@ -1,6 +1,8 @@
 """The port's wavefront solve and skewed ops against the JAX package
 (the plain version of the CUDA kernel, run on the CPU)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,11 +16,14 @@ from finitedifference_tpu.ops.pallas_wavefront import solve_skewed_pallas
 from finitedifference_tpu_torch.convert import (
     grid_from_jax,
     layout_from_jax,
-    to_torch,
 )
 from finitedifference_tpu_torch.ops import skewed as tsk
 from finitedifference_tpu_torch.ops import wavefront as twf
 from finitedifference_tpu_torch.ops.stencil import apply_jacobian
+from finitedifference_tpu_torch import convert
+
+# arrays go to the CPU, where the plain versions run
+to_torch = functools.partial(convert.to_torch, device="cpu")
 
 MU = [4.75, 0.02]
 DT = 0.07
@@ -98,8 +103,8 @@ def test_skewed_ops_match_jax():
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
     jsrc = jsk.skewed_source(jlay, jg, MU[1], DT, jnp.float64)
     jlbc = jsk.skewed_inflow_bc(jlay, jg, MU[0], DT, jnp.float64)
-    tsrc = tsk.skewed_source(tlay, tg, MU[1], DT, F64)
-    tlbc = tsk.skewed_inflow_bc(tlay, tg, MU[0], DT, F64)
+    tsrc = tsk.skewed_source(tlay, tg, MU[1], DT, F64, "cpu")
+    tlbc = tsk.skewed_inflow_bc(tlay, tg, MU[0], DT, F64, "cpu")
     for t, j in ((tsrc, jsrc), (tlbc, jlbc)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
                                    atol=1e-13)
