@@ -9,9 +9,12 @@ Phases, each printing its own lines:
    TF32 off;
 2. build the CUDA kernels from csrc/ (nvcc, at first use);
 3. the wavefront kernel against its plain PyTorch version on the card,
-   at the 750^2 main-path layout (1536, 768) and on a grid with
-   ny > 1024, in float32 and float64: error, exact zeros off the band,
-   and both times (CUDA events, median of 3);
+   at the 750^2 main-path layout (1536, 768) and on layouts that stress
+   the hand-off between its warps (ny far below and far above nx, warps
+   that do not fill the cluster's CTAs evenly, more warps in a CTA than
+   it has schedulers), in float32 and float64: error, exact zeros off
+   the band, two runs bit-equal, and at the main layout both times (CUDA
+   events, median of 3);
 4. the entry step: newton_step at 250^2 with a float32 state, on the card
    against the same call on the CPU;
 5. the main path: inviscid_burgers_implicit2d_skewed at 750^2 with a
@@ -21,7 +24,9 @@ Phases, each printing its own lines:
 6. a 64^2 float64 trajectory on the card against the CPU;
 7. the Gauss-Newton system kernels against their plain PyTorch versions
    on the card, in float32 and float64: B3 (gn_full) at the 250^2 and
-   750^2 95-mode layouts, B4 (gn_sampled_system) and B5
+   750^2 95-mode layouts (two runs bit-equal) and at a 150 x 149, 40-mode
+   layout whose chunks do not divide among the CTAs and whose k + 1 is
+   no multiple of the lane granularity, B4 (gn_sampled_system) and B5
    (gn_sampled_step) at the 250^2 synthetic-mesh layout (1508 sampled
    cells, 95 modes): error and both times (CUDA events, median of 3);
 8. the 250^2 ROM path: FOM snapshots at (4.25, 0.0225), a 95-mode rSVD
@@ -48,7 +53,8 @@ Phases, each printing its own lines:
    and 9 trajectories, f32 and f64: error and both times (the plain
    version's, seconds long, from the one run compared);
 14. [rom] pallas_traj_hprom (one launch for 500 steps) and tensor_hprom on
-   the bench mesh, against ecsw_hprom and the FOM;
+   the bench mesh, against ecsw_hprom and the FOM, and tensor_hprom
+   against ecsw_hprom once more in float64;
 15. [sweep] the 9-point μ grid of bench.py at 250^2: sweep_hprom generic,
    factored and pallas_traj (one launch for all 9 points) for 500 steps,
    each point held against its own run, and sweep_fom(engine="skewed",
@@ -236,16 +242,24 @@ def skewed_inputs(lay, dtype, seed):
             for a in arrs]
 
 
+# [kernel] layouts beside the main one: ny above 1024; ny far below nx (two
+# warps, one hand-off); ny far above nx (short bands through many warps); 36
+# warps over 8 CTAs (uneven); 68 warps, 9 a CTA (more than its schedulers)
+KERNEL_LAYOUTS = ((200, 1100), (1000, 40), (30, 900), (40, 1100), (20, 2100))
+
+
 def phase_kernel_vs_plain(card):
     """Returns {dtype: numbers} at the main-path layout."""
     main = {}
-    for nx, ny in ((MAIN_N, MAIN_N), (200, 1100)):
+    for nx, ny in ((MAIN_N, MAIN_N),) + KERNEL_LAYOUTS:
+        is_main = (nx, ny) == (MAIN_N, MAIN_N)
         grid = Grid2D(nx=nx, ny=ny)
         lay = sk.make_layout(grid)
         off_band = ~sk.valid_mask(lay, torch.bool, "cuda")
         for dtype in (F32, F64):
             args = skewed_inputs(lay, dtype, seed=nx + ny)
             got = cw.solve_skewed_cuda(*args, DT, grid, lay)
+            again = cw.solve_skewed_cuda(*args, DT, grid, lay)
             want = sk.solve_skewed_ref(*args, DT, grid, lay)
             torch.cuda.synchronize()
             rel = max(rel_err(g, w) for g, w in zip(got, want))
@@ -257,22 +271,27 @@ def phase_kernel_vs_plain(card):
                   f"kernel vs plain {nx}x{ny} {dtype}: rel {rel}")
             check(all(bool((g[off_band] == 0).all()) for g in got),
                   f"kernel {nx}x{ny} {dtype}: nonzero off the band")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"kernel {nx}x{ny} {dtype}: two runs differ")
             ms = cuda_ms(lambda: cw.solve_skewed_cuda(*args, DT, grid, lay),
                          calls=20)
-            plain_ms = cuda_ms(
-                lambda: sk.solve_skewed_ref(*args, DT, grid, lay), calls=1)
-            bound_ms, bound_by = bound(
-                6 * lay.nd_pad * lay.ny_pad * args[0].element_size(),
-                WAVEFRONT_OPS * nx * ny, dtype)
-            print(f"[kernel] {nx}x{ny} layout {lay.nd_pad}x{lay.ny_pad} "
-                  f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e}, "
-                  f"zeros off band ok; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-                  f"({card})")
-            if (nx, ny) == (MAIN_N, MAIN_N):
+            line = (f"[kernel] {nx}x{ny} layout {lay.nd_pad}x{lay.ny_pad} "
+                    f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e}, "
+                    f"zeros off band ok, two runs bit-equal; kernel "
+                    f"{ms:.4f} ms")
+            if is_main:
+                plain_ms = cuda_ms(
+                    lambda: sk.solve_skewed_ref(*args, DT, grid, lay),
+                    calls=1)
+                bound_ms, bound_by = bound(
+                    6 * lay.nd_pad * lay.ny_pad * args[0].element_size(),
+                    WAVEFRONT_OPS * nx * ny, dtype)
+                line += (f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
+                         f"ms ({bound_by})")
                 main[dtype] = dict(max_abs_err=abs_err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
+            print(f"{line} ({card})")
     return main
 
 
@@ -426,13 +445,16 @@ def sampled_system_inputs(dtype, seed):
             0.5 * DT / grid.dy)
 
 
-def compare(label, got, want, tol, card, ms, plain_ms, nbytes, ops):
+def compare(label, got, want, tol, card, ms, plain_ms, nbytes, ops, dtype):
+    """Hold a kernel's outputs against its plain version's; `dtype` is
+    the working type, whose peak rate the bound takes (B3's Gram comes
+    out in float64 whatever it was computed in)."""
     check(all(bool(torch.isfinite(g).all()) for g in got),
           f"{label}: kernel output not finite")
     rel = max(rel_err(g, w) for g, w in zip(got, want))
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(rel <= tol, f"{label}: kernel vs plain rel {rel} > {tol}")
-    bound_ms, bound_by = bound(nbytes, ops, got[0].dtype)
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
     print(f"[gn-kernel] {label}: rel {rel:.3e} max_abs {abs_err:.3e} "
           f"(tol {tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
@@ -468,8 +490,12 @@ def phase_gn_kernels(card):
             out["gn_full"][(n, dtype)] = compare(
                 f"gn_full {n}x{n} layout {tuple(vu.shape)} "
                 f"{str(dtype)[6:]}", (got, g0, cp0), (want, w0, wcp),
-                GN_TOL[dtype], card, ms, plain_ms, nbytes, ops)
+                GN_TOL[dtype], card, ms, plain_ms, nbytes, ops, dtype)
+            again = gf.gn_full_system(*args)
+            check(torch.equal(got, again),
+                  f"gn_full {n}x{n} {dtype}: two runs differ")
             del vu, vv, args
+    phase_gn_full_ragged(card)
     for dtype in (F32, F64):
         args = sampled_system_inputs(dtype, seed=1)
         layout = tuple(args[0].shape)
@@ -487,7 +513,7 @@ def phase_gn_kernels(card):
         out["gn_sampled_system"][(ROM_N, dtype)] = compare(
             f"gn_sampled_system {ROM_N}x{ROM_N} mesh layout {layout} "
             f"{str(dtype)[6:]}", (got,), (want,), GN_TOL[dtype], card, ms,
-            plain_ms, inputs + kp * kp * e, system_ops)
+            plain_ms, inputs + kp * kp * e, system_ops, dtype)
         dy, rn = gn.gn_step(*args)
         wdy, wrn = gn.gn_step_ref(*args)
         ms = cuda_ms(lambda: gn.gn_step(*args), calls=50)
@@ -497,8 +523,51 @@ def phase_gn_kernels(card):
             f"gn_sampled_step {ROM_N}x{ROM_N} mesh layout {layout} "
             f"{str(dtype)[6:]} (dy, rn)", (dy, rn), (wdy, wrn),
             100 * GN_TOL[dtype], card, ms, plain_ms, inputs + 2 * kp * e,
-            system_ops + cg_ops)
+            system_ops + cg_ops, dtype)
     return out
+
+
+def phase_gn_full_ragged(card):
+    """B3 where its geometry is uneven: 150 x 149 cells in chunks that do
+    not divide among the card's CTAs, and 40 modes, so that k + 1 = 41
+    is no multiple of the 16-lane granularity."""
+    nx, ny, k = 150, 149, 40
+    grid = Grid2D(nx=nx, ny=ny)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (F32, F64):
+        gen = torch.Generator(device=DEVICE).manual_seed(nx)
+        cells = grid.n_cells
+        basis = torch.randn((2 * cells, k), generator=gen, dtype=dtype,
+                            device=DEVICE) / cells ** 0.5
+        vu, vv, tr = gf.pad_basis_full(basis, grid, 4, dtype=dtype)
+        dmask = gf.row_mask(grid, tr, dtype, DEVICE)
+        nxp, _, tile = gf.full_layout(grid, tr)
+        y = (1 + 0.1 * torch.randn(k, generator=gen, dtype=dtype,
+                                   device=DEVICE)) * (cells / k) ** 0.5
+        slbc = 0.01 * dmask
+        hd = (0.5 * DT / grid.dx, 0.5 * DT / grid.dy)
+        geo = cgf.full_geometry(vu.shape[0], k, vu.element_size(), sms)
+        check(geo.n_chunks % geo.n_ctas != 0 and geo.lanes != k + 1,
+              f"gn_full ragged layout is even: {geo}")
+        g0, cp = gf.gn_full_first(vu, vv, y, slbc, dmask, k, nxp, tile, *hd)
+        w0, wcp = gf.gn_full_ref(vu, vv, y, slbc, dmask, k, nxp, tile, *hd,
+                                 True)
+        g1 = gf.gn_full_system(vu, vv, y, cp, dmask, k, nxp, tile, *hd)
+        again = gf.gn_full_system(vu, vv, y, cp, dmask, k, nxp, tile, *hd)
+        w1 = gf.gn_full_ref(vu, vv, y, cp, dmask, k, nxp, tile, *hd,
+                            False)[0]
+        torch.cuda.synchronize()
+        rel = max(rel_err(g, w) for g, w in ((g0, w0), (cp, wcp), (g1, w1)))
+        check(rel <= GN_TOL[dtype], f"gn_full ragged {dtype}: rel {rel}")
+        check(torch.equal(g1, again), f"gn_full ragged {dtype}: two runs "
+              f"differ")
+        check(bool((g1[k + 1:] == 0).all() and (g1[:, k + 1:] == 0).all()),
+              f"gn_full ragged {dtype}: nonzero beyond lane k")
+        print(f"[gn-kernel] gn_full {nx}x{ny} k {k} layout "
+              f"{tuple(vu.shape)} {str(dtype)[6:]}: {geo.n_chunks} chunks of "
+              f"{geo.chunk} cells over {geo.n_ctas} CTAs, {geo.lanes} live "
+              f"lanes: rel {rel:.3e} (tol {GN_TOL[dtype]:g}), two runs "
+              f"bit-equal, zeros beyond lane k ({card})")
 
 
 def run_engine(label, fn, kernel, steps, launches, generic=None,
@@ -929,9 +998,27 @@ def phase_rom_traj(card, ctx, launches):
     torch.cuda.synchronize()
     print(f"[rom] {ROM_N}x{ROM_N} tensor_hprom operators: H "
           f"{tuple(tens.h.shape)} in {time.perf_counter() - t0:.2f} s")
-    engine("tensor_hprom normal", lambda: rt.tensor_hprom(
+    t32 = engine("tensor_hprom normal", lambda: rt.tensor_hprom(
         grid, mesh, ctx["sw32"], y0, tens, DT, steps, *MU,
         ls_method="normal"))
+    # the same pair in float64: is the f32 difference rounding of the
+    # precomputed operators, or a fault?
+    sw64, ba64, y64 = ctx["sw32"].to(F64), ctx["ba"].to(F64), y0.to(F64)
+    ref64 = ecsw_hprom(grid, mesh, sw64, y64, ba64, DT, steps, *MU,
+                       ls_method="normal")
+    tens64 = rt.precompute_hprom_tensors(grid, mesh, sw64, ba64, DT)
+    t64 = rt.tensor_hprom(grid, mesh, sw64, y64, tens64, DT, steps, *MU,
+                          ls_method="normal")
+    diff32 = rel_err(t32.red_coords, ctx["hprom"].red_coords)
+    diff64 = rel_err(t64.red_coords, ref64.red_coords)
+    check(diff64 < ENGINE_TOL, f"tensor_hprom f64 vs ecsw_hprom f64: rel "
+          f"{diff64}")
+    print(f"[rom] {ROM_N}x{ROM_N} tensor_hprom vs ecsw_hprom: rel "
+          f"{diff32:.3e} in f32, {diff64:.3e} in f64 ({t64.total_gn_its} "
+          f"and {ref64.total_gn_its} GN its in f64); f32 ecsw_hprom vs f64 "
+          f"ecsw_hprom rel "
+          f"{rel_err(ctx['hprom'].red_coords, ref64.red_coords):.3e} "
+          f"({card})")
 
 
 def phase_sweep(card, ctx, gn_launches):

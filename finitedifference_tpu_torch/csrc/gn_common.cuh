@@ -1,9 +1,10 @@
-// Shared passes of the Gauss-Newton system kernels (gn_full.cu, B3, and
-// gn_sampled.cu, B4 and B5), written by hand for Hopper (sm_90a), and the
-// block-wide masked CG that B5 and the trajectory kernel (gn_traj.cu, B6)
-// run on a reduced Gram.
+// Shared passes of the sampled-mesh Gauss-Newton system kernels
+// (gn_sampled.cu, B4 and B5), written by hand for Hopper (sm_90a), the
+// float64 reduction of partial Grams that the full-grid kernel (gn_full.cu,
+// B3) ends with too, and the block-wide masked CG that B5 and the trajectory
+// kernel (gn_traj.cu, B6) run on a reduced Gram.
 //
-// Every system kernel is the same four passes on the current stream:
+// A sampled system kernel is four passes on the current stream:
 //   1. rows_dot:       s = B y, a GEMV over the basis rows (one warp a row);
 //   2. a rows pass:    the weighted [J V | r] rows A (rows, k1p), lane k
 //                      holding the residual, lanes > k zero (per file);
@@ -14,6 +15,8 @@
 //   4. reduce_partials: the chunks' partials summed in float64, one thread an
 //                      element, into a (ldo, ldo) output with zeros beyond
 //                      k1p.
+// B3 fuses passes 1 to 3 into one kernel that keeps A in shared memory
+// (gn_full.cu) and shares pass 4.
 // The TPU kernels summed their tiles in one VMEM scratch across a grid that
 // runs in order; CUDA blocks run in no order, so partials and a second pass
 // take its place, and the float64 sum keeps the cross-chunk rounding out of

@@ -30,7 +30,6 @@ from finitedifference_tpu_torch.ops._build import (
     check_tensor,
     symbol,
 )
-from finitedifference_tpu_torch.ops.cuda_gn_full import gram_chunks, live_lanes
 
 SYSTEM_LAUNCHES = 0
 STEP_LAUNCHES = 0
@@ -42,6 +41,28 @@ MAX_STEP_LANES = 256
 # holds the (k1p, k1p) Gram in shared memory: summed in float64 up to 128
 # lanes, in float32 at 192 (float32 only); 227 KB hold no more
 MAX_TRAJ_LANES = {torch.float32: 192, torch.float64: 128}
+
+# the partial-Gram geometry of the shared passes (csrc/gn_common.cuh)
+GRAM_EDGE = 64     # output block edge: live lanes pad to a multiple
+GRAM_ROWS = 32     # rows staged per step: chunks are a multiple
+TARGET_CHUNKS = 256
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def live_lanes(k: int) -> int:
+    """k1p: lanes 0..k rounded up to the Gram's block edge."""
+    return _round_up(k + 1, GRAM_EDGE)
+
+
+def gram_chunks(rows: int) -> tuple[int, int]:
+    """(rows per chunk, number of chunks) of the partial Grams: about
+    TARGET_CHUNKS chunks of at least GRAM_ROWS rows."""
+    rpc = max(GRAM_ROWS, _round_up(-(-rows // TARGET_CHUNKS), GRAM_ROWS))
+    return rpc, -(-rows // rpc)
+
 
 @functools.cache
 def _kernel(kind: str, dtype):

@@ -8,7 +8,8 @@ step constant cp. It runs in float32 or float64. The plain version of
 the same function is ops/gn_full.gn_full_ref.
 
 LAUNCHES counts the kernel's launches in this process (one per call;
-each call runs the kernel's passes on the current stream), so a run can
+each call runs the fused kernel and its float64 reduction on the current
+stream), so a run can
 show that its main path went through the kernel.
 """
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,10 +30,17 @@ from finitedifference_tpu_torch.ops._build import (
 
 LAUNCHES = 0
 
-# the kernel's partial-Gram geometry (csrc/gn_common.cuh)
-GRAM_EDGE = 64     # output block edge: live lanes pad to a multiple
-GRAM_ROWS = 32     # rows staged per step: chunks are a multiple
-TARGET_CHUNKS = 256
+# the kernel's geometry (csrc/gn_full.cu)
+LANE_STEP = 16            # live lanes round up to a multiple
+CHUNK_CELLS = (32, 16, 8, 4)   # cells staged per step, largest that fits
+TILE = 8                  # a thread's register tile of the Gram is 8x8
+MAX_GROUP = 160           # threads of one group of tiles
+# by the working type's size: (threads of a CTA, CTAs per SM, the largest
+# chunk tried), the fastest of those timed on an H100 at 96 live lanes
+# (PERF.md)
+TUNING = {4: (192, 2, 16), 8: (96, 3, 8)}
+COEFS = 12                # per-cell coefficients kept in shared memory
+SHARED_BUDGET = 200 * 1024     # of the 227 KB a block can use
 
 
 def _round_up(x: int, m: int) -> int:
@@ -39,24 +48,69 @@ def _round_up(x: int, m: int) -> int:
 
 
 def live_lanes(k: int) -> int:
-    """k1p: lanes 0..k rounded up to the Gram's block edge."""
-    return _round_up(k + 1, GRAM_EDGE)
+    """Lanes 0..k rounded up to the kernel's lane granularity."""
+    return _round_up(k + 1, LANE_STEP)
 
 
-def gram_chunks(rows: int) -> tuple[int, int]:
-    """(rows per chunk, number of chunks) of the partial Grams: about
-    TARGET_CHUNKS chunks of at least GRAM_ROWS rows."""
-    rpc = max(GRAM_ROWS, _round_up(-(-rows // TARGET_CHUNKS), GRAM_ROWS))
-    return rpc, -(-rows // rpc)
+def shared_bytes(chunk: int, lanes: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA: y, the coefficients, two stages
+    (rows of the chunk's cells and the cell before, of their south
+    neighbours, the mask, slbc or cp) and the rows A."""
+    stride = lanes + 16 // itemsize
+    stage = 2 * (chunk + 1) * stride + 2 * chunk * stride + 3 * chunk
+    return itemsize * (lanes + COEFS * chunk + 2 * stage
+                       + 2 * chunk * stride)
+
+
+class FullGeometry(NamedTuple):
+    """How one call is cut: `lanes` live lanes; `n_chunks` chunks of
+    `chunk` consecutive padded cells (the last one ragged), chunk c going
+    to CTA c mod n_ctas; a CTA has `threads` threads, whole groups of one
+    thread per 8x8 tile of the live lanes' upper triangle."""
+    lanes: int
+    chunk: int
+    n_chunks: int
+    n_ctas: int
+    threads: int
+
+    def cta_chunks(self, cta: int) -> range:
+        """The chunks CTA `cta` walks, in order."""
+        return range(cta, self.n_chunks, self.n_ctas)
+
+    def chunk_cells(self, c: int, n_pad: int) -> range:
+        """The padded cells of chunk c."""
+        return range(c * self.chunk, min((c + 1) * self.chunk, n_pad))
+
+
+def full_geometry(n_pad: int, k: int, itemsize: int,
+                  n_sm: int) -> FullGeometry:
+    """The kernel's geometry for n_pad cells, k modes, a working type of
+    `itemsize` bytes and a card of `n_sm` SMs: one persistent CTA per SM
+    (fewer when there are fewer chunks), fixed by the shape alone."""
+    lanes = live_lanes(k)
+    max_threads, ctas_per_sm, max_chunk = TUNING[itemsize]
+    tiles = (lanes // TILE) * (lanes // TILE + 1) // 2
+    group = min(_round_up(tiles, 32), MAX_GROUP)
+    threads = max(1, max_threads // group) * group
+    fits = [c for c in CHUNK_CELLS if c <= max_chunk
+            and shared_bytes(c, lanes, itemsize) * ctas_per_sm
+            <= SHARED_BUDGET]
+    if not fits:
+        raise ValueError(f"gn_full kernel: k={k} needs more shared memory "
+                         f"than a block has")
+    chunk = fits[0]
+    n_chunks = -(-n_pad // chunk)
+    return FullGeometry(lanes, chunk, n_chunks,
+                        min(ctas_per_sm * n_sm, n_chunks), threads)
 
 
 @functools.cache
 def _kernel(dtype):
     suffix, scalar = SCALARS[dtype]
     return symbol(f"fd_gn_full_{suffix}",
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                  + [scalar, scalar, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p])
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                  + [scalar, scalar] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
 
 
 def gn_full_cuda(vu_p, vv_p, y, aux, dmask, k: int, nxp: int, hdx: float,
@@ -86,17 +140,17 @@ def gn_full_cuda(vu_p, vv_p, y, aux, dmask, k: int, nxp: int, hdx: float,
         check_tensor("slbc", aux, device, dtype, [(n_pad,), (n_pad, 1)])
     else:
         check_tensor("cp", aux, device, dtype, [(n_pad, 2)])
-    k1p = live_lanes(k)
-    if not 0 < k < kp or k1p > kp or nxp <= 0 or n_pad % nxp \
-            or n_pad * k1p >= 2 ** 31:
+    if not 0 < k < kp or live_lanes(k) > kp or nxp <= 0 or n_pad % nxp \
+            or n_pad % 8:
         raise ValueError(f"gn_full kernel: k={k}, nxp={nxp} do not fit "
-                         f"the layout (n_pad={n_pad}, kp={kp})")
-
-    rows = 2 * n_pad
-    rpc, n_chunks = gram_chunks(rows)
-    s = torch.empty(rows, dtype=dtype, device=device)
-    a = torch.empty((rows, k1p), dtype=dtype, device=device)
-    partials = torch.empty((n_chunks, k1p, k1p), dtype=dtype, device=device)
+                         f"the layout (n_pad={n_pad}, a multiple of 8, "
+                         f"kp={kp})")
+    if any(x.data_ptr() % 16 for x in (vu_p, vv_p, aux, dmask)):
+        raise ValueError("gn_full kernel: inputs must be 16-byte aligned")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    geo = full_geometry(n_pad, k, vu_p.element_size(), n_sm)
+    partials = torch.empty((geo.n_ctas, geo.lanes, geo.lanes), dtype=dtype,
+                           device=device)
     gext = torch.empty((kp, kp), dtype=torch.float64, device=device)
     cp = torch.empty((n_pad, 2), dtype=dtype, device=device) if first \
         else None
@@ -105,9 +159,9 @@ def gn_full_cuda(vu_p, vv_p, y, aux, dmask, k: int, nxp: int, hdx: float,
         rc = _kernel(dtype)(
             vu_p.data_ptr(), vv_p.data_ptr(), y.data_ptr(), aux.data_ptr(),
             dmask.data_ptr(), cp.data_ptr() if first else None,
-            s.data_ptr(), a.data_ptr(), partials.data_ptr(),
-            gext.data_ptr(), n_pad, kp, k, k1p, nxp, int(first),
-            float(hdx), float(hdy), rpc, n_chunks, stream)
+            partials.data_ptr(), gext.data_ptr(), n_pad, kp, k, geo.lanes,
+            nxp, int(first), float(hdx), float(hdy), geo.chunk, geo.n_ctas,
+            geo.threads, stream)
     check_launch(rc, "gn_full")
     LAUNCHES += 1
     return gext, cp

@@ -2,7 +2,8 @@
 
 solve_skewed_cuda replaces finitedifference_tpu/ops/pallas_wavefront.py::
 _make_kernel_reg (B1): the exact triangular solve of the Newton Jacobian
-on padded skewed fields (nd_pad, ny_pad). solve_skewed_seg_cuda replaces
+on padded skewed fields (nd_pad, ny_pad), a chain of warps over one thread
+block cluster. solve_skewed_seg_cuda replaces
 pallas_wavefront.py::_make_kernel_seg (B7): the overlapping-segment
 approximate solve, one CTA per segment. Both run in float32 or float64
 (the TPU kernels were float32 only because Mosaic has no f64). Their
@@ -29,11 +30,13 @@ from finitedifference_tpu_torch.ops._build import (
 LAUNCHES = 0
 SEG_LAUNCHES = 0
 
-# limits of the kernel: one thread per row up to 1024 rows, then at most
-# 512 threads of 4 or 8 rows; 8 * ny_pad values of shared memory out of
-# the 227 KB a block can use
+# limits of the kernels. The exact solve: a cluster of 8 CTAs of at most
+# 16 warps, one row a lane. The segment solve: one thread per row up to
+# 1024 rows, then at most 512 threads of 4 or 8 rows, and 8 * ny_pad values
+# of shared memory out of the 227 KB a block can use
 MAX_NY_PAD = 512 * 8
 MAX_SHARED_BYTES = 232448
+
 
 @functools.cache
 def _kernel(dtype, seg: bool = False):
@@ -44,7 +47,7 @@ def _kernel(dtype, seg: bool = False):
                   + [ctypes.c_void_p])
 
 
-def _check(su, sv, sfu, sfv, grid, lay):
+def _check(su, sv, sfu, sfv, grid, lay, seg: bool = False):
     shape = (lay.nd_pad, lay.ny_pad)
     for name, x in (("su", su), ("sv", sv), ("sfu", sfu), ("sfv", sfv)):
         check_tensor(name, x, getattr(su, "device", None),
@@ -57,9 +60,9 @@ def _check(su, sv, sfu, sfv, grid, lay):
         raise ValueError(f"layout {lay} does not fit grid "
                          f"{grid.nx}x{grid.ny}")
     if lay.ny_pad > MAX_NY_PAD or \
-            8 * lay.ny_pad * su.element_size() > MAX_SHARED_BYTES:
+            (seg and 8 * lay.ny_pad * su.element_size() > MAX_SHARED_BYTES):
         raise ValueError(f"ny_pad={lay.ny_pad} exceeds what the wavefront "
-                         f"kernel holds in one block for {su.dtype}")
+                         f"kernel holds for {su.dtype}")
 
 
 def solve_skewed_cuda(su, sv, sfu, sfv, dt, grid, lay):
@@ -97,7 +100,7 @@ def solve_skewed_seg_cuda(su, sv, sfu, sfv, dt, grid, lay, *, n_seg: int,
     before them. Inputs and limits as solve_skewed_cuda; one CTA per
     segment. Returns (sdu, sdv) with exact zeros off the band."""
     global SEG_LAUNCHES
-    _check(su, sv, sfu, sfv, grid, lay)
+    _check(su, sv, sfu, sfv, grid, lay, seg=True)
     if not 1 <= n_seg <= lay.nd_pad or overlap < 0:
         raise ValueError(f"segmented wavefront kernel: n_seg={n_seg} must "
                          f"be in [1, nd_pad={lay.nd_pad}] and overlap="

@@ -11,8 +11,8 @@ use). The tests without the marker run anywhere.
 
 Tolerances, kernel against plain version on the same inputs: float64
 1e-12 relative (Frobenius); float32 5e-5 relative, because both sum
-float32 partial Grams over chunks of a few thousand rows, in different
-orders, before the float64 reduction. Gauss-Newton counts are equal.
+float32 partial Grams over thousands of rows, in different orders and
+over different sets of rows, before the float64 reduction. Gauss-Newton counts are equal.
 """
 
 import numpy as np
@@ -90,16 +90,21 @@ def sampled_inputs(n_s, k, dtype, device, tile=256, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [F32, F64])
 @pytest.mark.parametrize("shape", [(12, 10, 6), (40, 33, 30),
-                                   (250, 250, 95), (64, 64, 150)])
+                                   (250, 250, 95), (64, 64, 150),
+                                   (150, 149, 40)])
 def test_gn_full_kernel_matches_plain(cuda, shape, dtype):
     """B3, first=True and first=False, over many chunks: the Gram
-    extension, the step constant, zeros above lane k."""
+    extension, the step constant, zeros above lane k, two runs bit-equal.
+    (64, 64, 150) has 160 live lanes, more tiles than one group of
+    threads holds; at (150, 149, 40) the chunks do not divide among the
+    CTAs and k + 1 = 41 is no multiple of the 16-lane granularity."""
     vu, vv, y, cp, slbc, dmask, k, nxp, tile, hd = full_inputs(
         *shape, dtype, cuda)
     before = cgf.LAUNCHES
     g0, cp0 = gf.gn_full_first(vu, vv, y, slbc, dmask, k, nxp, tile, *hd)
     g1 = gf.gn_full_system(vu, vv, y, cp, dmask, k, nxp, tile, *hd)
     assert cgf.LAUNCHES == before + 2
+    again = gf.gn_full_system(vu, vv, y, cp, dmask, k, nxp, tile, *hd)
     w0, wcp = gf.gn_full_ref(vu, vv, y, slbc, dmask, k, nxp, tile, *hd,
                              True)
     w1, _ = gf.gn_full_ref(vu, vv, y, cp, dmask, k, nxp, tile, *hd, False)
@@ -109,6 +114,11 @@ def test_gn_full_kernel_matches_plain(cuda, shape, dtype):
     assert rel(g1, w1) <= TOL[dtype]
     assert rel(cp0, wcp) <= TOL[dtype]
     assert bool((g1[k + 1:] == 0).all()) and bool((g1[:, k + 1:] == 0).all())
+    assert torch.equal(g1, again)
+    if shape == (150, 149, 40):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        geo = cgf.full_geometry(vu.shape[0], k, vu.element_size(), sms)
+        assert geo.n_chunks % geo.n_ctas and geo.lanes != k + 1
 
 
 @pytest.mark.cuda

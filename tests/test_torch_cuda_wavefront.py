@@ -54,25 +54,50 @@ def skewed_inputs(lay, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize("shape", [(8, 6), (13, 5), (750, 750),
-                                   (40, 1100), (20, 2100)])
+                                   (40, 1100), (20, 2100), (1000, 40),
+                                   (30, 900), (5, 300), (300, 4000)])
 def test_kernel_matches_plain(cuda, shape, dtype, tol):
     """f32 within 1e-5 and f64 within 1e-12 of the plain loop (the two
-    differ only in rounding), with exact zeros off the band. The last two
-    shapes have ny_pad > 1024, where threads own 4 and 8 rows."""
+    differ only in rounding), with exact zeros off the band, and two runs
+    bit-equal. The kernel is a chain of warps of 32 rows over a cluster of
+    8 CTAs: (40, 1100) has 36 warps, which do not fill the CTAs evenly;
+    (20, 2100) 9 warps a CTA, more than its schedulers; (1000, 40) two
+    warps and ny far below nx; (30, 900) and (5, 300) ny far above nx, a
+    band that crosses a warp in a few diagonals; (300, 4000) the widest
+    layout, 16 warps a CTA."""
     nx, ny = shape
     grid = Grid2D(nx=nx, ny=ny)
     lay = sk.make_layout(grid)
     args = skewed_inputs(lay, dtype, cuda)
     got = cw.solve_skewed_cuda(*args, DT, grid, lay)
+    again = cw.solve_skewed_cuda(*args, DT, grid, lay)
     want = sk.solve_skewed_ref(*args, DT, grid, lay)
     torch.cuda.synchronize()
     off_band = ~sk.valid_mask(lay, torch.bool, cuda)
-    for g, w in zip(got, want):
+    for g, a, w in zip(got, again, want):
         assert torch.isfinite(g).all()
         rel = float(torch.linalg.vector_norm(g - w)
                     / torch.linalg.vector_norm(w))
         assert rel <= tol
         assert bool((g[off_band] == 0).all())
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_is_deterministic_under_load(cuda, dtype):
+    """Ten solves in a row on the same inputs, other work on the card in
+    between, give the same bits: no cell's arithmetic depends on how the
+    warps happen to be staggered."""
+    grid = Grid2D(nx=250, ny=250)
+    lay = sk.make_layout(grid)
+    args = skewed_inputs(lay, dtype, cuda, seed=3)
+    first = cw.solve_skewed_cuda(*args, DT, grid, lay)
+    busy = torch.randn((2048, 2048), device=cuda)
+    for _ in range(10):
+        busy = busy @ busy.T / 2048
+        again = cw.solve_skewed_cuda(*args, DT, grid, lay)
+        assert all(torch.equal(f, a) for f, a in zip(first, again))
 
 
 @pytest.mark.cuda
