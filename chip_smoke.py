@@ -43,15 +43,20 @@ Phases, each printing its own lines:
    and pallas_hprom on the card against the same runs on the CPU;
 11. [seg-kernel] the overlapping-segment wavefront kernel (B7) against its
    plain version at the 750^2 layout, n_seg 8, overlap 64, f32 and f64:
-   error, zeros off the band, difference from B1's exact solve, both
-   kernels' times;
+   error, zeros off the band, two runs bit-equal, difference from B1's
+   exact solve, both kernels' times; then the same checks on SEG_LAYOUTS
+   (ny_pad no multiple of a warp's rows, ny far below and above nx, n_seg
+   not dividing nd_pad, overlap 0 and >= seg_len, trailing segments that
+   own nothing, one segment within KERNEL_TOL of B1);
 12. [main-seg] the 750^2 trajectory with seg=8, seg_overlap=64 (f32
    solves, f64 Newton, f32 snapshots): steps/s, Newton its/step, one B7
    launch per Newton iteration, final state against the exact chain;
 13. [traj-kernel] the whole-trajectory kernel (B6) against its plain
    version on the 250^2 bench mesh layout (6, 1536, 128), 50 steps, 1
-   and 9 trajectories, f32 and f64: error and both times (the plain
-   version's, seconds long, from the one run compared);
+   and 9 trajectories, f32 and f64: error, two runs bit-equal, the b = 1
+   run bit-equal to its row of the b = 9 launch, and both times (the plain
+   version's, seconds long, from the one run compared); then k = 150 in
+   f32 on a layout whose 7 chunks do not divide among the cluster's CTAs;
 14. [rom] pallas_traj_hprom (one launch for 500 steps) and tensor_hprom on
    the bench mesh, against ecsw_hprom and the FOM, and tensor_hprom
    against ecsw_hprom once more in float64;
@@ -825,6 +830,50 @@ def seg_cells(lay, n_seg, overlap):
     return total
 
 
+# [seg-kernel] layouts, (nx, ny, n_seg, overlap): the main path's; ny_pad
+# 1024 (2 rows a lane, 16 warps) and 2176 (8 rows a lane, 9 warps, the last
+# one half empty: no multiple of the 256 rows a warp holds); ny far below
+# and far above nx; n_seg not dividing nd_pad; overlap 0 and overlap >=
+# seg_len; trailing segments that own nothing; one segment (the exact
+# solve, B1's bits) in each band of rows a lane (ny_pad 128, 1152, 2048,
+# 2176)
+SEG_LAYOUTS = [(750, 750, 8, 64), (750, 750, 16, 64), (40, 1000, 4, 32),
+              (20, 2100, 16, 8), (1000, 40, 8, 64), (30, 900, 8, 64),
+              (750, 750, 7, 64), (750, 750, 8, 0), (200, 200, 8, 100),
+              (13, 5, 14, 0), (13, 5, 4, 16), (64, 64, 1, 0),
+              (40, 1100, 1, 0), (20, 2000, 1, 0), (20, 2100, 1, 0)]
+
+
+def seg_layout_check(nx, ny, n_seg, overlap, dtype):
+    """B7 against its plain version on one layout: within KERNEL_TOL,
+    exact zeros off the band, two runs bit-equal, and with one segment
+    and no overlap bit-equal to B1's exact solve. Returns the relative
+    error."""
+    grid = Grid2D(nx=nx, ny=ny)
+    lay = sk.make_layout(grid)
+    off_band = ~sk.valid_mask(lay, torch.bool, DEVICE)
+    kw = dict(n_seg=n_seg, overlap=overlap)
+    args = skewed_inputs(lay, dtype, seed=nx + ny)
+    got = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+    again = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+    want = sk.solve_skewed_seg_ref(*args, DT, grid, lay, **kw)
+    torch.cuda.synchronize()
+    what = f"seg kernel {nx}x{ny} {kw} {dtype}"
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: not finite")
+    rel = max(rel_err(g, w) for g, w in zip(got, want))
+    check(rel <= KERNEL_TOL[dtype], f"{what}: rel {rel}")
+    check(all(bool((g[off_band] == 0).all()) for g in got),
+          f"{what}: nonzero off the band")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two runs differ")
+    if n_seg == 1 and overlap == 0:
+        exact = cw.solve_skewed_cuda(*args, DT, grid, lay)
+        check(all(torch.equal(g, e) for g, e in zip(got, exact)),
+              f"{what}: one segment differs from B1")
+    return rel
+
+
 def phase_seg_kernel(card):
     """B7 against its plain version and beside B1 at the 750^2 layout;
     returns {dtype: numbers}."""
@@ -848,6 +897,9 @@ def phase_seg_kernel(card):
               f"{rel}")
         check(all(bool((g[off_band] == 0).all()) for g in got),
               f"seg kernel {dtype}: nonzero off the band")
+        again = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"seg kernel {dtype}: two runs differ")
         vs_exact = max(rel_err(g, e) for g, e in zip(got, exact))
         check(vs_exact < 1e-4, f"seg kernel {dtype} vs the exact solve: rel "
               f"{vs_exact}")
@@ -869,6 +921,11 @@ def phase_seg_kernel(card):
         out[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                           b1_ms=b1_ms, rel_vs_exact=vs_exact,
                           bound_ms=bound_ms, bound_by=bound_by)
+    for layout in SEG_LAYOUTS[1:]:
+        rels = [seg_layout_check(*layout, dtype) for dtype in (F32, F64)]
+        print(f"[seg-kernel] (nx, ny, n_seg, overlap) {layout}: rel "
+              f"{rels[0]:.3e} f32, {rels[1]:.3e} f64 vs plain, zeros off "
+              f"band, two runs bit-equal ({card})")
     return out
 
 
@@ -918,6 +975,33 @@ def phase_main_seg(card, exact_final):
     return total
 
 
+def traj_inputs(n, k, n_cells, dtype, b, seed=11, device="cuda"):
+    """B6 on an n^2 grid: a random orthonormal k-mode basis, n_cells
+    weighted sampled cells, the padded blocks, and b μ points' y0 and
+    source columns (the shape of tests/test_torch_cuda_traj.py's problem;
+    n = 250, n_cells = 1508 is the bench mesh's layout (6, 1536, 128))."""
+    grid = Grid2D(nx=n, ny=n)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((grid.state_dim, k), generator=gen,
+                                       dtype=F64, device=device))
+    weights = np.zeros(grid.n_cells)
+    weights[rng.choice(grid.n_cells, size=n_cells, replace=False)] = \
+        1 + rng.uniform(size=n_cells)
+    basis = q.to(dtype)
+    mesh, sw, ba = prepare_hprom(grid, weights, basis)
+    # the bench mesh pads to 256 cells, the small ones to 8 (a last chunk
+    # of 32 cells that is ragged)
+    p6p, wgt_p = rf.precompute_pallas_system(
+        rf.precompute_factored_blocks(mesh, ba), sw,
+        tile=256 if n_cells > 1000 else 8, dtype=dtype)
+    y0 = basis.T @ torch.ones(grid.state_dim, dtype=dtype, device=device)
+    slbc = torch.stack([rf.traj_source(grid, mesh, DT, *mu, p6p.shape[1],
+                                       dtype) for mu in SWEEP_MUS[:b]])
+    hd = (0.5 * DT / grid.dx, 0.5 * DT / grid.dy)
+    return p6p, y0.expand(b, -1).contiguous(), slbc, wgt_p, k, *hd
+
+
 def traj_bound(p6p, k, steps, b, its, evals, iters=rf.CG_ITERS):
     """B6's bound for one launch, from the systems it built and the
     updates it made."""
@@ -942,6 +1026,7 @@ def phase_traj_kernel(card, ctx):
         p6p, wgt_p = rf.precompute_pallas_system(blocks, ctx["sw32"],
                                                  dtype=dtype)
         n_p, k = p6p.shape[1], ctx["y0"].shape[0]
+        single = None
         for b in (1, 9):
             y0 = ctx["y0"].to(dtype).expand(b, -1).contiguous()
             slbc = torch.stack([rf.traj_source(grid, mesh, DT, *mu, n_p,
@@ -949,9 +1034,19 @@ def phase_traj_kernel(card, ctx):
                                 for mu in SWEEP_MUS[:b]])
             args = (p6p, y0, slbc, wgt_p, k, *hd, TRAJ_STEPS)
             ys, its, evals = cg.gn_traj_cuda(*args)
+            again = cg.gn_traj_cuda(*args)
             plain_ms, want = cuda_ms_once(
                 lambda: gn.trajectory_hprom_ref(*args))
             check(bool(torch.isfinite(ys).all()), "traj kernel not finite")
+            check(all(torch.equal(a, x) for a, x in zip((ys, its, evals),
+                                                        again)),
+                  f"traj kernel b={b} {dtype}: two runs differ")
+            if b == 1:
+                single = ys
+            else:
+                check(torch.equal(single[0], ys[0]),
+                      f"traj kernel {dtype}: the b = 1 run differs from "
+                      f"its row of the b = 9 launch")
             rel = rel_err(ys, want.ys)
             abs_err = float((ys - want.ys).abs().max())
             tol = 1e-10 if dtype == F64 else 1e-4
@@ -976,7 +1071,40 @@ def phase_traj_kernel(card, ctx):
             out[(b, dtype)] = dict(max_abs_err=abs_err, rel_err=rel, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
+    print(f"[traj-kernel] two runs bit-equal, and each b = 1 run bit-equal "
+          f"to its row of the b = 9 launch ({card})")
+    traj_kernel_ragged(card)
     return out
+
+
+def traj_kernel_ragged(card):
+    """B6 where its geometry is uneven: k = 150 (kp 256, 160 live lanes)
+    in f32 on a 24^2 grid whose 220 sampled cells pad to 224, 7 chunks
+    of 32 for the cluster's 8 CTAs; 9 points against plain, two runs,
+    b = 1 against its row."""
+    args = traj_inputs(24, 150, 220, F32, 9)
+    p6p, k = args[0], args[4]
+    geo = cg.traj_geometry(p6p.shape[1], k, p6p.element_size())
+    check(geo.n_chunks % geo.cluster != 0 and p6p.shape[2] == 256,
+          f"traj ragged layout is even: {geo}")
+    got = cg.gn_traj_cuda(*args, TRAJ_STEPS)
+    again = cg.gn_traj_cuda(*args, TRAJ_STEPS)
+    one = cg.gn_traj_cuda(args[0], args[1][:1].contiguous(),
+                          args[2][:1].contiguous(), *args[3:], TRAJ_STEPS)
+    want = gn.trajectory_hprom_ref(*args, TRAJ_STEPS)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got[0]).all()), "traj ragged: not finite")
+    rel = rel_err(got[0], want.ys)
+    check(rel <= 1e-4, f"traj ragged k 150 f32: rel {rel}")
+    check(all(torch.equal(a, x) for a, x in zip(got, again)),
+          "traj ragged: two runs differ")
+    check(torch.equal(one[0][0], got[0][0]),
+          "traj ragged: the b = 1 run differs from its row of b = 9")
+    print(f"[traj-kernel] 24x24 k 150 layout {tuple(p6p.shape)} f32 9 "
+          f"trajectories x {TRAJ_STEPS} steps, {geo.n_chunks} chunks over "
+          f"{geo.cluster} CTAs, {geo.lanes} live lanes: rel {rel:.3e} (tol "
+          f"1e-4), GN its {int(got[1].sum())} (plain {int(want.its.sum())}),"
+          f" two runs and b = 1 bit-equal ({card})")
 
 
 def phase_rom_traj(card, ctx, launches):

@@ -1,8 +1,9 @@
 // Shared passes of the sampled-mesh Gauss-Newton system kernels
 // (gn_sampled.cu, B4 and B5), written by hand for Hopper (sm_90a), the
 // float64 reduction of partial Grams that the full-grid kernel (gn_full.cu,
-// B3) ends with too, and the block-wide masked CG that B5 and the trajectory
-// kernel (gn_traj.cu, B6) run on a reduced Gram.
+// B3) ends with too, the block-wide masked CG that B5 runs on a reduced
+// Gram, and the 16-byte row accesses of B3 and the trajectory kernel
+// (gn_traj.cu, B6).
 //
 // A sampled system kernel is four passes on the current stream:
 //   1. rows_dot:       s = B y, a GEMV over the basis rows (one warp a row);
@@ -33,6 +34,29 @@ namespace fdgn {
 constexpr int kBlock = 256;     // threads of every pass but the CG
 constexpr int kGramEdge = 64;   // output block edge of gram_partials
 constexpr int kGramRows = 32;   // rows staged in shared memory per step
+
+// 16 bytes of T
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; };
+template <> struct Vec<double> { using type = double2; };
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+template <typename T, int N>
+__device__ __forceinline__ void load_lanes(const T* p, T (&out)[N]) {
+  using V = typename Vec<T>::type;
+#pragma unroll
+  for (int i = 0; i < N / kVec<T>; ++i)
+    reinterpret_cast<V*>(out)[i] = reinterpret_cast<const V*>(p)[i];
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_lanes(T* p, const T (&in)[N]) {
+  using V = typename Vec<T>::type;
+#pragma unroll
+  for (int i = 0; i < N / kVec<T>; ++i)
+    reinterpret_cast<V*>(p)[i] = reinterpret_cast<const V*>(in)[i];
+}
 
 template <typename T>
 __device__ __forceinline__ T tiny_normal();

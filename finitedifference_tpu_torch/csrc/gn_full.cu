@@ -70,9 +70,13 @@
 
 namespace {
 
+using fdgn::kVec;
+using fdgn::load_lanes;
+using fdgn::store_lanes;
 using fdsync::barrier_expect;
 using fdsync::barrier_init;
 using fdsync::barrier_wait;
+using fdsync::bulk_copy;
 
 constexpr int kTile = 8;         // edge of a thread's register tile
 constexpr int kLaneStep = 16;    // live lanes are a multiple
@@ -86,41 +90,6 @@ constexpr int kDefaultSmem = 48 * 1024;
 template <typename T> struct Threads;
 template <> struct Threads<float> { static constexpr int value = 384; };
 template <> struct Threads<double> { static constexpr int value = 320; };
-
-// 16 bytes of T
-template <typename T> struct Vec;
-template <> struct Vec<float> { using type = float4; };
-template <> struct Vec<double> { using type = double2; };
-template <typename T>
-constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-
-template <typename T, int N>
-__device__ __forceinline__ void load_lanes(const T* p, T (&out)[N]) {
-  using V = typename Vec<T>::type;
-#pragma unroll
-  for (int i = 0; i < N / kVec<T>; ++i)
-    reinterpret_cast<V*>(out)[i] = reinterpret_cast<const V*>(p)[i];
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_lanes(T* p, const T (&in)[N]) {
-  using V = typename Vec<T>::type;
-#pragma unroll
-  for (int i = 0; i < N / kVec<T>; ++i)
-    reinterpret_cast<V*>(p)[i] = reinterpret_cast<const V*>(in)[i];
-}
-
-// One contiguous run of bytes (a multiple of 16, 16-byte aligned at both
-// ends) from global to shared memory by the copy engine: one instruction
-// of one thread whatever the length. It counts its bytes on the mbarrier.
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(fdsync::local_address(smem)), "l"(gmem), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // One stage of the ring, in units of T: the rows of the chunk's cells and
 // of the cell before them ([2 halves][chunk + 1][stride]), of their south

@@ -1,5 +1,5 @@
-// mbarrier and shared-memory address helpers of the Hopper kernels
-// (wavefront.cu, gn_full.cu): inline PTX for sm_90.
+// mbarrier, bulk-copy and shared-memory address helpers of the Hopper
+// kernels (wavefront.cu, gn_full.cu, gn_traj.cu): inline PTX for sm_90.
 #pragma once
 
 namespace fdsync {
@@ -39,6 +39,18 @@ __device__ __forceinline__ void barrier_wait(unsigned bar, unsigned parity) {
         "}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// One contiguous run of bytes (a multiple of 16, 16-byte aligned at both
+// ends) from global to shared memory by the copy engine: one instruction
+// of one thread whatever the length. It counts its bytes on the mbarrier.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(local_address(smem)), "l"(gmem), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 }  // namespace fdsync

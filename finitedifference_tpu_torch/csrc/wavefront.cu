@@ -70,15 +70,14 @@
 //    registers before it solves the current block, so no load latency is on
 //    the chain (cp.async of 4 bytes a lane cost more than it hid); the block
 //    inverse depends only on u_d, v_d and is formed off the chain;
-//  * every cell runs solve_cell, the same arithmetic in the same order as
-//    solve_skewed_ref, whatever warp it falls in, and every hand-off is
-//    fixed by the shape: the result does not depend on timing;
+//  * every cell runs solve_cell_with, the same arithmetic in the same
+//    order as solve_skewed_ref, each operation rounded as written, whatever
+//    warp it falls in, and every hand-off is fixed by the shape: the
+//    result does not depend on timing;
 //  * any ny_pad up to 4096 is 128 warps, 16 a CTA.
 // What holds it now: one warp alone on its scheduler takes ~0.17 us a
 // diagonal (the dependent latency of its instructions, run in order with
 // no other warp to hide it), ~0.22 us with the hand-off.
-// The first design (one CTA, one thread a row, a shared-memory exchange and
-// a barrier per diagonal) remains as the segment kernel below.
 //
 // fd_wavefront_solve_seg_* (B7) replaces
 // finitedifference_tpu/ops/pallas_wavefront.py::_make_kernel_seg, the
@@ -92,21 +91,48 @@
 //
 // What bounds it: the same latency as B1, now a chain of seg_len + overlap
 // steps (256 instead of 1536 at 750^2 with n_seg = 8, overlap = 64) that
-// runs on n_seg SMs at once; the bytes (each input diagonal read by at most
-// two segments) stay far below the card's rate.
+// runs on n_seg SMs at once, and the issue rate of those SMs: a diagonal
+// is 24 warp-rows of ~50 instructions on one SM. The bytes (each input
+// diagonal read by at most two segments) stay far below the card's rate.
+// The first design (one CTA, one thread a row, a shared-memory exchange and a
+// 768-thread barrier per diagonal) spent 0.58 us a diagonal.
 //
-// How the design answers it: the TPU kernel packed the segments into
-// (j_pad, n_seg, ny_pad) slabs to fill its sublanes; here each segment is
-// one CTA on the (nd_pad, ny_pad) arrays as they are, so no pack or unpack
-// copy is needed. A segment's CTA has one thread per skewed row r up to
-// ny_pad = 1024; above that each of at most 512 threads owns RPT = 4 or 8
-// rows (strided by blockDim). The west carry stays in registers; the south
-// carry comes from a double-buffered shared array of the four carries, so
-// one __syncthreads() per diagonal orders every exchange; the next
-// diagonal's inputs are loaded before the barrier; a thread with several
-// rows makes every read of a diagonal before any write, so its rows'
-// chains overlap (one row per thread runs in half the time of two, measured
-// on an H100 SXM at 700 W, PERF.md).
+// How the segment solve (B7) answers it: the TPU kernel packed the
+// segments into (j_pad, n_seg, ny_pad) slabs to fill its sublanes; here
+// each segment is one CTA on the (nd_pad, ny_pad) arrays as they are, so no
+// pack or unpack copy is needed, and inside it B1's chain of warps, with
+// no block barrier in the loop (measured at 750^2 on an H100, PERF.md):
+//  * first a pass over all SMs forms every cell's block reciprocal: they
+//    depend on a cell's own inputs alone, and on the chain they took a
+//    quarter of a segment's time (0.165 -> 0.129 ms f32). Every operation
+//    of a cell is rounded as written (Rn), so one segment with no overlap
+//    gives B1's bits, though B1 forms the reciprocals inline;
+//  * up to 768 rows, a lane holds 2 rows, r0 and r0 + 32, in 12 warps: one
+//    warp per scheduler and 6 rows a lane left no other warp to hide a
+//    warp's latencies, and the rows did not overlap (0.37 ms). Above 768
+//    rows (launch_seg) a lane holds 2, 4 or 8 rows in 8 to 16 warps, with
+//    blocks of fewer diagonals so that its inputs fit its registers; in
+//    f64 these layouts are slower than the first design's one thread a
+//    row, except at 1025-1536 rows. A warp's loads and stores of one row
+//    are 128 contiguous bytes;
+//  * the south carry comes from the lane below by a shuffle (lane 0 takes
+//    lane 31's row one lower), the west carry stays in registers; the
+//    warp's bottom row takes the carry of the warp below, whose lane 31
+//    posts the block's top-row carries into a ring of 4 blocks in this
+//    warp's shared memory and arrives on the block's mbarrier; the reader
+//    waits once a block, takes the block into registers and frees it on a
+//    second mbarrier. Blocks are 4 diagonals (f32) or 2 (f64); all warps
+//    start on the segment's first diagonal, so the chain fills in
+//    (warps - 1) blocks: 44 diagonals at 750^2, where the segment walks
+//    256 (blocks of 8: 0.26 ms);
+//  * as in B1, each lane loads the next block's inputs and reciprocals
+//    while it solves the current one, and takes the row below's inputs
+//    by shuffles before the chain. The addresses are clamped into the
+//    arrays and the values never masked: a select on a load's result
+//    waits for the load at once (0.17 ms of 0.38 when tried);
+//  * every cell runs solve_cell_with, the same arithmetic in the same order
+//    as solve_skewed_seg_ref, and every hand-off is fixed by the shape:
+//    the result does not depend on timing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -123,21 +149,67 @@ using fdsync::barrier_init;
 using fdsync::barrier_wait;
 using fdsync::local_address;
 
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kSegMaxRows = 32 * 8 * 16;   // the segment solve: 4096 rows
 
-// One band cell: the 2x2 block at (u, v), the right-hand sides from the west
-// carry (d-1, r) and the south carry (d-1, r-1), and the solve. The
-// reciprocal of the determinant depends on the cell's inputs alone, so a
-// caller may form it ahead of the chain (solve_cell_with).
+// The block and the reciprocal of its determinant, every operation rounded
+// as written: the compiler fuses a free a * b + c by what surrounds it, and
+// B1 forms the reciprocal inline, B7 in a pass of its own, yet a cell must
+// give the same bits in both. The fused multiply-adds are those the
+// compiler made of the plain expressions in B1 (its outputs did not change,
+// measured on an H100, PERF.md); 1 / x is the correctly rounded reciprocal.
+// The right-hand sides and the solve stay plain expressions: both chains
+// inline them from solve_cell_with. Spelled out in the reciprocal alone
+// (the block left plain in the solve), B1 formed the block twice and took
+// twice its time in f64.
+template <typename T> struct Rn;
+template <> struct Rn<float> {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+  static __device__ __forceinline__ float inv(float a) {
+    return __frcp_rn(a);
+  }
+};
+template <> struct Rn<double> {
+  static __device__ __forceinline__ double mul(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ double fma(double a, double b,
+                                               double c) {
+    return __fma_rn(a, b, c);
+  }
+  static __device__ __forceinline__ double inv(double a) {
+    return __drcp_rn(a);
+  }
+};
+
+// The 2x2 block at (u, v):
+//   [[1 + kx u + ky/2 v, ky/2 u], [kx/2 v, 1 + ky v + kx/2 u]]
+template <typename T>
+struct Block {
+  T b11, b12, b21, b22;
+  __device__ __forceinline__ Block(T u, T v, T kx, T ky) {
+    using R = Rn<T>;
+    const T hkx = R::mul(T(0.5), kx), hky = R::mul(T(0.5), ky);
+    b11 = R::fma(hky, v, R::fma(kx, u, T(1)));
+    b12 = R::mul(hky, u);
+    b21 = R::mul(hkx, v);
+    b22 = R::fma(hkx, u, R::fma(ky, v, T(1)));
+  }
+};
+
+// One band cell: the block, the right-hand sides from the west carry (d-1,
+// r) and the south carry (d-1, r-1), and the solve. The reciprocal of the
+// determinant depends on the cell's inputs alone, so a caller may form it
+// ahead of the chain (solve_cell_with).
 template <typename T>
 __device__ __forceinline__ T inverse_det(T u, T v, T kx, T ky) {
-  const T one = T(1);
-  const T half = T(0.5);
-  const T b11 = one + kx * u + half * ky * v;
-  const T b12 = half * ky * u;
-  const T b21 = half * kx * v;
-  const T b22 = one + ky * v + half * kx * u;
-  return one / (b11 * b22 - b12 * b21);
+  using R = Rn<T>;
+  const Block<T> b(u, v, kx, ky);
+  return R::inv(R::fma(b.b11, b.b22, -R::mul(b.b12, b.b21)));
 }
 
 template <typename T>
@@ -146,25 +218,12 @@ __device__ __forceinline__ void solve_cell_with(T inv_det, T u, T v, T fu,
                                                 T v_w, T du_s, T dv_s, T u_s,
                                                 T v_s, T kx, T ky, T& du,
                                                 T& dv) {
-  const T one = T(1);
   const T half = T(0.5);
-  const T b11 = one + kx * u + half * ky * v;
-  const T b12 = half * ky * u;
-  const T b21 = half * kx * v;
-  const T b22 = one + ky * v + half * kx * u;
+  const Block<T> b(u, v, kx, ky);
   const T rhs_u = fu + kx * u_w * du_w + half * ky * (v_s * du_s + u_s * dv_s);
   const T rhs_v = fv + half * kx * (v_w * du_w + u_w * dv_w) + ky * v_s * dv_s;
-  du = (b22 * rhs_u - b12 * rhs_v) * inv_det;
-  dv = (b11 * rhs_v - b21 * rhs_u) * inv_det;
-}
-
-template <typename T>
-__device__ __forceinline__ void solve_cell(T u, T v, T fu, T fv, T du_w,
-                                           T dv_w, T u_w, T v_w, T du_s,
-                                           T dv_s, T u_s, T v_s, T kx, T ky,
-                                           T& du, T& dv) {
-  solve_cell_with(inverse_det(u, v, kx, ky), u, v, fu, fv, du_w, dv_w, u_w,
-                  v_w, du_s, dv_s, u_s, v_s, kx, ky, du, dv);
+  du = (b.b22 * rhs_u - b.b12 * rhs_v) * inv_det;
+  dv = (b.b11 * rhs_v - b.b21 * rhs_u) * inv_det;
 }
 
 // ----------------------------------------------------------------------
@@ -496,170 +555,304 @@ int launch_exact(const void* su, const void* sv, const void* sfu,
 }
 
 // ----------------------------------------------------------------------
-// B7: the overlapping-segment solve, one CTA per segment
+// B7: the overlapping-segment solve, one CTA of chained warps per segment
 // ----------------------------------------------------------------------
 
-constexpr int kMaxThreadsOneRow = 1024;   // RPT == 1
-constexpr int kMaxThreadsRows = 512;      // RPT > 1: room for 128 registers
+constexpr int kSegRing = 4;    // blocks of posts a warp's mailbox holds
 
-template <typename T, int RPT>
-__global__ void __launch_bounds__(RPT == 1 ? kMaxThreadsOneRow
-                                           : kMaxThreadsRows)
+// A warp's mailbox for the segment solve: the warp below posts the carries
+// (du, dv, u, v) of its top row on the K diagonals of a block into a block
+// of the ring and arrives on `full`; this warp takes the block into
+// registers and arrives on `empty`, which frees it for the block kSegRing
+// later.
+template <typename T, int K>
+struct alignas(16) SegMailbox {
+  T ring[kSegRing][K][4];
+  unsigned long long full[kSegRing];
+  unsigned long long empty[kSegRing];
+};
+
+// a plain arrival (release at CTA scope) on a barrier of this CTA
+__device__ __forceinline__ void barrier_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// The reciprocals of every cell's block determinant, inv = 1 / det B(u, v),
+// formed for the whole field at once, all SMs in parallel, before the
+// chains: they depend on a cell's own inputs alone, and on the chain they
+// cost a segment's warps over a quarter of their time (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(256)
+seg_inverse_kernel(const T* __restrict__ su, const T* __restrict__ sv,
+                   T* __restrict__ sinv, int n, T kx, T ky) {
+  for (int e = blockIdx.x * 256 + threadIdx.x; e < n; e += gridDim.x * 256)
+    sinv[e] = inverse_det(su[e], sv[e], kx, ky);
+}
+
+// R: the rows a lane holds; K: the diagonals of a block; MAXW: the most
+// warps a CTA is launched with
+template <typename T, int R, int K, int MAXW>
+__global__ void __launch_bounds__(32 * MAXW)
 wavefront_seg_kernel(const T* __restrict__ su, const T* __restrict__ sv,
                      const T* __restrict__ sfu, const T* __restrict__ sfv,
-                     T* __restrict__ sdu, T* __restrict__ sdv,
-                     int nx, int ny, int nd_pad, int ny_pad, T kx, T ky,
-                     int seg_len, int overlap) {
-  // [2 buffers][4 carries: du, dv, u, v][ny_pad]
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* carry = reinterpret_cast<T*>(smem_raw);
-
-  const T zero = T(0);
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+                     const T* __restrict__ sinv, T* __restrict__ sdu,
+                     T* __restrict__ sdv, int nx, int ny, int nd_pad,
+                     int ny_pad, T kx, T ky, int seg_len, int overlap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];   // mailboxes
   // this CTA's segment: owned diagonals [d_own, d_end), warm-up from d_begin
   const int d_own = blockIdx.x * seg_len;
   const int d_begin = d_own - overlap > 0 ? d_own - overlap : 0;
   const int d_end = d_own + seg_len < nd_pad ? d_own + seg_len : nd_pad;
   if (d_own >= d_end) return;   // a trailing segment owns nothing
 
-  T du_p[RPT], dv_p[RPT], u_p[RPT], v_p[RPT];   // diagonal d-1, own rows
-  T u_n[RPT], v_n[RPT], fu_n[RPT], fv_n[RPT];   // prefetched diagonal d
-
-  // the buffer of diagonal d_begin - 1 holds the zero carry
-  for (int i = tid; i < 4 * ny_pad; i += nthreads) {
-    carry[((d_begin + 1) & 1) * 4 * ny_pad + i] = zero;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  auto* boxes = reinterpret_cast<SegMailbox<T, K>*>(smem_raw);
+  SegMailbox<T, K>* mine = boxes + w;
+  if (lane == 0) {
+    for (int i = 0; i < kSegRing; ++i) {
+      barrier_init(local_address(&mine->full[i]), 1);
+      barrier_init(local_address(&mine->empty[i]), 1);
+    }
+    fdsync::barrier_init_fence();
   }
-  const size_t first = static_cast<size_t>(d_begin) * ny_pad;
+  __syncthreads();   // every mailbox is set before anyone posts
+
+  const T zero = T(0);
+  // this lane's rows: r0 + 32 j, j < R, so that a warp's loads and stores
+  // of one j are 128 contiguous bytes
+  const int r0 = w * 32 * R + lane;
+  const bool reads = w > 0;             // the row below r0 is in the warp below
+  const bool posts = w + 1 < n_warps;   // the warp above reads its top row
+  SegMailbox<T, K>* above = posts ? boxes + w + 1 : boxes;
+  const unsigned my_full = local_address(mine->full);
+  const unsigned my_empty = local_address(mine->empty);
+  const unsigned above_full = local_address(above->full);
+  const unsigned above_empty = local_address(above->empty);
+
+  // inputs u, v, fu, fv and the reciprocal of this lane's rows on the K
+  // diagonals from d0.
+  // The address is clamped into the arrays, never the value masked, so no
+  // instruction waits on a load before its use: rows past ny_pad are off
+  // the band (their results are zeros, and only rows above them read their
+  // carries), and diagonals past the segment are never solved.
+  // nd_pad * ny_pad is far below 2^31.
+  unsigned row_at[R];
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = tid + j * nthreads;
-    du_p[j] = dv_p[j] = u_p[j] = v_p[j] = zero;
-    u_n[j] = v_n[j] = fu_n[j] = fv_n[j] = zero;
-    if (r < ny_pad) {
-      u_n[j] = su[first + r];
-      v_n[j] = sv[first + r];
-      fu_n[j] = sfu[first + r];
-      fv_n[j] = sfv[first + r];
+  for (int j = 0; j < R; ++j)
+    row_at[j] = r0 + 32 * j < ny_pad ? r0 + 32 * j : ny_pad - 1;
+  auto load_block = [&](int d0, T (&in)[5][R][K]) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const unsigned at =
+          static_cast<unsigned>(d0 + i < nd_pad ? d0 + i : nd_pad - 1) *
+          ny_pad;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        in[0][j][i] = su[at + row_at[j]];
+        in[1][j][i] = sv[at + row_at[j]];
+        in[2][j][i] = sfu[at + row_at[j]];
+        in[3][j][i] = sfv[at + row_at[j]];
+        in[4][j][i] = sinv[at + row_at[j]];
+      }
     }
-  }
-  __syncthreads();
+  };
+  // the row below row j of this lane: the lane below; for lane 0, lane
+  // 31's row one j lower (and for j = 0 the warp below, taken from the
+  // mail instead)
+  const int below = (lane + 31) & 31;
+  auto from_below = [&](const T (&x)[R], int j) {
+    return __shfl_sync(0xffffffffu, lane == 31 && j ? x[j ? j - 1 : 0] : x[j],
+                       below);
+  };
 
-  for (int d = d_begin; d < d_end; ++d) {
-    const T* prev = carry + ((d + 1) & 1) * 4 * ny_pad;
-    T* cur = carry + (d & 1) * 4 * ny_pad;
-    const size_t row = static_cast<size_t>(d) * ny_pad;
-    const size_t next = row + ny_pad;
-
-    T u[RPT], v[RPT], fu[RPT], fv[RPT];
-    T du_s[RPT], dv_s[RPT], u_s[RPT], v_s[RPT];   // south: (d-1, r-1)
-    // every read of this diagonal before any write
+  T du_p[R], dv_p[R], u_p[R], v_p[R];   // diagonal d - 1, this lane's rows
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = tid + j * nthreads;
-      u[j] = u_n[j];
-      v[j] = v_n[j];
-      fu[j] = fu_n[j];
-      fv[j] = fv_n[j];
-      du_s[j] = dv_s[j] = u_s[j] = v_s[j] = zero;
-      if (r < ny_pad) {
-        if (d + 1 < d_end) {
-          u_n[j] = su[next + r];
-          v_n[j] = sv[next + r];
-          fu_n[j] = sfu[next + r];
-          fv_n[j] = sfv[next + r];
+  for (int j = 0; j < R; ++j) du_p[j] = dv_p[j] = u_p[j] = v_p[j] = zero;
+  // the carry of the warp below's top row on the diagonal before the block
+  // (zero before the warm-up and below row 0)
+  T last[4] = {zero, zero, zero, zero};
+  T cur[5][R][K], nxt[5][R][K];
+  load_block(d_begin, cur);
+
+  const int n_blocks = (d_end - d_begin + K - 1) / K;
+  for (int m = 0; m < n_blocks; ++m) {
+    const int d0 = d_begin + m * K;
+    const int n_diag = d_end - d0 < K ? d_end - d0 : K;
+    const unsigned slot = m % kSegRing;
+    load_block(d0 + K, nxt);
+    // lane 0 takes the block's mail: the warp below's top row on d0 .. d0
+    // + K - 1; diagonal d0 + i needs the one before it
+    T mail[K][4];
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mail[i][q] = zero;
+    if (lane == 0 && reads) {
+      barrier_wait(my_full + 8 * slot, (m / kSegRing) & 1);
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mail[i][q] = mine->ring[slot][i][q];
+      barrier_arrive(my_empty + 8 * slot);   // the block is free again
+    }
+
+    // ahead of the chain, for the whole block: the inputs of the row below
+    // one diagonal back
+    T us[R][K], vs[R][K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      T cu[R], cv[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        cu[j] = i ? cur[0][j][i - 1] : u_p[j];
+        cv[j] = i ? cur[1][j][i - 1] : v_p[j];
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        us[j][i] = from_below(cu, j);
+        vs[j][i] = from_below(cv, j);
+      }
+      if (lane == 0) {
+        us[0][i] = i ? mail[i - 1][2] : last[2];
+        vs[0][i] = i ? mail[i - 1][3] : last[3];
+      }
+    }
+
+    T du_b[K], dv_b[K];   // the top row's results, for the posts
+    const bool own0 = d0 >= d_own;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i >= n_diag) break;
+      const int d = d0 + i;
+      T s_du[R], s_dv[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        s_du[j] = from_below(du_p, j);
+        s_dv[j] = from_below(dv_p, j);
+      }
+      if (lane == 0) {
+        s_du[0] = i ? mail[i - 1][0] : last[0];
+        s_dv[0] = i ? mail[i - 1][1] : last[1];
+      }
+      const bool own_d = own0 || d >= d_own;
+      const unsigned at = static_cast<unsigned>(d) * ny_pad + r0;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = r0 + 32 * j;
+        const bool on = r < ny && r <= d && d - r < nx;
+        T du, dv;
+        solve_cell_with(cur[4][j][i], cur[0][j][i], cur[1][j][i],
+                        cur[2][j][i], cur[3][j][i], du_p[j], dv_p[j], u_p[j],
+                        v_p[j], s_du[j], s_dv[j], us[j][i], vs[j][i], kx, ky,
+                        du, dv);
+        du = on ? du : zero;
+        dv = on ? dv : zero;
+        if (own_d && r < ny_pad) {
+          sdu[at + 32 * j] = du;
+          sdv[at + 32 * j] = dv;
         }
-        if (r > 0) {
-          du_s[j] = prev[r - 1];
-          dv_s[j] = prev[ny_pad + r - 1];
-          u_s[j] = prev[2 * ny_pad + r - 1];
-          v_s[j] = prev[3 * ny_pad + r - 1];
-        }
+        du_p[j] = du;
+        dv_p[j] = dv;
+        u_p[j] = cur[0][j][i];
+        v_p[j] = cur[1][j][i];
       }
+      du_b[i] = du_p[R - 1];
+      dv_b[i] = dv_p[R - 1];
     }
-
+    // only the last block is short, and nothing reads `last` after it
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = tid + j * nthreads;
-      if (r >= ny_pad) continue;
-      T du = zero;
-      T dv = zero;
-      if (r < ny && r <= d && d - r < nx) {
-        solve_cell(u[j], v[j], fu[j], fv[j], du_p[j], dv_p[j], u_p[j],
-                   v_p[j], du_s[j], dv_s[j], u_s[j], v_s[j], kx, ky, du, dv);
+    for (int q = 0; q < 4; ++q) last[q] = mail[K - 1][q];
+
+    // the block's carries go up in one go: the warp above waits for the
+    // whole block anyway. Its block of the ring is free once the reader
+    // has taken the block kSegRing before.
+    if (lane == 31 && posts) {
+      if (m >= kSegRing)
+        barrier_wait(above_empty + 8 * slot, (m / kSegRing - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        if (i >= n_diag) break;
+        T* post = above->ring[slot][i];
+        post[0] = du_b[i];
+        post[1] = dv_b[i];
+        post[2] = cur[0][R - 1][i];
+        post[3] = cur[1][R - 1][i];
       }
-      if (d >= d_own) {
-        sdu[row + r] = du;
-        sdv[row + r] = dv;
-      }
-      cur[r] = du;
-      cur[ny_pad + r] = dv;
-      cur[2 * ny_pad + r] = u[j];
-      cur[3 * ny_pad + r] = v[j];
-      du_p[j] = du;
-      dv_p[j] = dv;
-      u_p[j] = u[j];
-      v_p[j] = v[j];
+      barrier_arrive(above_full + 8 * slot);
     }
-    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < 5; ++a)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < K; ++i) cur[a][j][i] = nxt[a][j][i];
   }
 }
 
-template <typename T, int RPT>
-cudaError_t launch_rpt(const T* su, const T* sv, const T* sfu, const T* sfv,
-                       T* sdu, T* sdv, int nx, int ny, int nd_pad, int ny_pad,
-                       T kx, T ky, int n_seg, int seg_len, int overlap,
-                       int threads, size_t smem, cudaStream_t stream) {
-  auto kernel = wavefront_seg_kernel<T, RPT>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<n_seg, threads, smem, stream>>>(su, sv, sfu, sfv, sdu, sdv, nx,
-                                           ny, nd_pad, ny_pad, kx, ky,
-                                           seg_len, overlap);
+template <typename T, int R, int K, int MAXW>
+cudaError_t launch_rows(const T* su, const T* sv, const T* sfu, const T* sfv,
+                        const T* sinv, T* sdu, T* sdv, int nx, int ny,
+                        int nd_pad, int ny_pad, T kx, T ky, int n_seg,
+                        int seg_len, int overlap, cudaStream_t stream) {
+  const int warps = (ny_pad + 32 * R - 1) / (32 * R);
+  wavefront_seg_kernel<T, R, K, MAXW>
+      <<<n_seg, 32 * warps, warps * sizeof(SegMailbox<T, K>), stream>>>(
+          su, sv, sfu, sfv, sinv, sdu, sdv, nx, ny, nd_pad, ny_pad, kx, ky,
+          seg_len, overlap);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_seg(const void* su, const void* sv, const void* sfu,
-               const void* sfv, void* sdu, void* sdv, int nx, int ny,
-               int nd_pad, int ny_pad, T kx, T ky, int n_seg, int overlap,
-               void* stream) {
+               const void* sfv, void* sinv, void* sdu, void* sdv, int nx,
+               int ny, int nd_pad, int ny_pad, T kx, T ky, int n_seg,
+               int overlap, void* stream) {
   if (nx < 1 || ny < 1 || ny > ny_pad || nd_pad < 1 || n_seg < 1 ||
-      n_seg > nd_pad || overlap < 0) {
+      n_seg > nd_pad || overlap < 0 || ny_pad > kSegMaxRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int seg_len = (nd_pad + n_seg - 1) / n_seg;
-  const int rpt = ny_pad <= kMaxThreadsOneRow       ? 1
-                  : ny_pad <= 4 * kMaxThreadsRows   ? 4
-                  : ny_pad <= 8 * kMaxThreadsRows   ? 8
-                                                    : 0;
-  if (rpt == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((ny_pad + rpt - 1) / rpt + 31) / 32 * 32;
-  const size_t smem = 8 * static_cast<size_t>(ny_pad) * sizeof(T);
   const auto* a = static_cast<const T*>(su);
   const auto* b = static_cast<const T*>(sv);
   const auto* c = static_cast<const T*>(sfu);
   const auto* e = static_cast<const T*>(sfv);
+  auto* inv = static_cast<T*>(sinv);
   auto* o1 = static_cast<T*>(sdu);
   auto* o2 = static_cast<T*>(sdv);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (rpt) {
-    case 1:
-      err = launch_rpt<T, 1>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, n_seg, seg_len, overlap, threads, smem, s);
-      break;
-    case 4:
-      err = launch_rpt<T, 4>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, n_seg, seg_len, overlap, threads, smem, s);
-      break;
-    default:
-      err = launch_rpt<T, 8>(a, b, c, e, o1, o2, nx, ny, nd_pad, ny_pad, kx,
-                             ky, n_seg, seg_len, overlap, threads, smem, s);
+  const int n = nd_pad * ny_pad;
+  seg_inverse_kernel<T><<<(n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024,
+                          256, 0, s>>>(a, b, inv, n, kx, ky);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // up to 768 rows (750^2): 2 rows a lane in up to 12 warps, the carries
+  // handed up every 4 diagonals (f32) or 2 (f64: twice the registers); up
+  // to 1024, 2 rows in 16 warps, every 2 (1); up to 1536, 4 rows in up to
+  // 12 warps, every 2 (1); up to 2048, 8 rows in up to 8 warps (255
+  // registers a lane), every diagonal; above, 8 rows in up to 16 warps,
+  // which spill in f64 (PERF.md has the times of each band)
+  constexpr int kMainK = sizeof(T) == sizeof(float) ? 4 : 2;
+  if (ny_pad <= 32 * 2 * 12) {
+    err = launch_rows<T, 2, kMainK, 12>(a, b, c, e, inv, o1, o2, nx, ny,
+                                        nd_pad, ny_pad, kx, ky, n_seg,
+                                        seg_len, overlap, s);
+  } else if (ny_pad <= 32 * 2 * 16) {
+    err = launch_rows<T, 2, kMainK / 2, 16>(a, b, c, e, inv, o1, o2, nx, ny,
+                                            nd_pad, ny_pad, kx, ky, n_seg,
+                                            seg_len, overlap, s);
+  } else if (ny_pad <= 32 * 4 * 12) {
+    err = launch_rows<T, 4, kMainK / 2, 12>(a, b, c, e, inv, o1, o2, nx, ny,
+                                            nd_pad, ny_pad, kx, ky, n_seg,
+                                            seg_len, overlap, s);
+  } else if (ny_pad <= 32 * 8 * 8) {
+    err = launch_rows<T, 8, 1, 8>(a, b, c, e, inv, o1, o2, nx, ny, nd_pad,
+                                  ny_pad, kx, ky, n_seg, seg_len, overlap, s);
+  } else {
+    err = launch_rows<T, 8, 1, 16>(a, b, c, e, inv, o1, o2, nx, ny, nd_pad,
+                                   ny_pad, kx, ky, n_seg, seg_len, overlap,
+                                   s);
   }
   return static_cast<int>(err);
 }
@@ -686,24 +879,25 @@ int fd_wavefront_solve_f64(const void* su, const void* sv, const void* sfu,
                               ny_pad, kx, ky, stream);
 }
 
-// The overlapping-segment solve: n_seg CTAs, each owning ceil(nd_pad /
+// The overlapping-segment solve: the reciprocals of the field into sinv
+// (nd_pad, ny_pad) scratch, then n_seg CTAs, each owning ceil(nd_pad /
 // n_seg) diagonals after `overlap` warm-up diagonals from a zero carry.
 int fd_wavefront_solve_seg_f32(const void* su, const void* sv,
-                               const void* sfu, const void* sfv, void* sdu,
-                               void* sdv, int nx, int ny, int nd_pad,
-                               int ny_pad, float kx, float ky, int n_seg,
-                               int overlap, void* stream) {
-  return launch_seg<float>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
+                               const void* sfu, const void* sfv, void* sinv,
+                               void* sdu, void* sdv, int nx, int ny,
+                               int nd_pad, int ny_pad, float kx, float ky,
+                               int n_seg, int overlap, void* stream) {
+  return launch_seg<float>(su, sv, sfu, sfv, sinv, sdu, sdv, nx, ny, nd_pad,
                            ny_pad, kx, ky, n_seg, overlap, stream);
 }
 
 int fd_wavefront_solve_seg_f64(const void* su, const void* sv,
-                               const void* sfu, const void* sfv, void* sdu,
-                               void* sdv, int nx, int ny, int nd_pad,
-                               int ny_pad, double kx, double ky, int n_seg,
-                               int overlap, void* stream) {
-  return launch_seg<double>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
-                            ny_pad, kx, ky, n_seg, overlap, stream);
+                               const void* sfu, const void* sfv, void* sinv,
+                               void* sdu, void* sdv, int nx, int ny,
+                               int nd_pad, int ny_pad, double kx, double ky,
+                               int n_seg, int overlap, void* stream) {
+  return launch_seg<double>(su, sv, sfu, sfv, sinv, sdu, sdv, nx, ny,
+                            nd_pad, ny_pad, kx, ky, n_seg, overlap, stream);
 }
 
 const char* fd_cuda_error_string(int code) {

@@ -8,9 +8,9 @@ pallas_gn.py::_make_step_kernel (B5): the same system, then a masked CG
 on the device, giving (dy, ||W r||) for one fused Gauss-Newton
 iteration. gn_traj_cuda replaces pallas_gn.py::_make_traj_kernel (B6):
 whole HPROM trajectories, every step and every Gauss-Newton iteration,
-one CTA per trajectory, all in one launch. All run in float32 or
-float64. Their plain versions are ops/gn.gn_system_ref, gn_step_ref and
-trajectory_hprom_ref.
+one thread block cluster per trajectory (traj_geometry), all in one
+launch. All run in float32 or float64. Their plain versions are
+ops/gn.gn_system_ref, gn_step_ref and trajectory_hprom_ref.
 
 SYSTEM_LAUNCHES, STEP_LAUNCHES and TRAJ_LAUNCHES count the kernels'
 launches in this process (one per call), so a run can show that its main
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,10 +38,59 @@ TRAJ_LAUNCHES = 0
 
 # the CG runs one CTA with one thread per lane (csrc/gn_sampled.cu)
 MAX_STEP_LANES = 256
-# live lanes k1p = round_up(k + 1, 64) of the trajectory kernel, whose CTA
-# holds the (k1p, k1p) Gram in shared memory: summed in float64 up to 128
-# lanes, in float32 at 192 (float32 only); 227 KB hold no more
+# live lanes of the trajectory kernel, k + 1 rounded up to TRAJ_LANE_STEP:
+# every CTA of a cluster holds the (lanes, lanes) Gram in shared memory,
+# its partial summed in float64 up to 128 lanes, in float32 above (float32
+# only); 227 KB hold no more
 MAX_TRAJ_LANES = {torch.float32: 192, torch.float64: 128}
+
+# how the trajectory kernel (csrc/gn_traj.cu) cuts a system over its
+# cluster: fixed by the shape, never by the batch, so that a point's
+# result does not depend on the points beside it. The kernel picks its
+# threads and the cells it stages at a time itself, from k and the type.
+TRAJ_CLUSTER = 8          # CTAs of a trajectory's cluster (kCluster there)
+TRAJ_CELLS = 32           # cells of a partial Gram, trajectory_hprom_ref's too
+TRAJ_LANE_STEP = 16
+TRAJ_TILE = 8             # the Gram is summed and reduced in 8x8 tiles
+
+
+class TrajGeometry(NamedTuple):
+    """How the trajectory kernel cuts one system over its cluster:
+    `lanes` live lanes; chunks of TRAJ_CELLS cells, chunk c going to CTA
+    c mod `cluster`; the 8x8 tiles of the live lanes' upper triangle,
+    tile t summed over the cluster by CTA t mod `cluster`."""
+    lanes: int
+    cluster: int
+    n_chunks: int
+
+    def cta_chunks(self, rank: int) -> range:
+        """The chunks CTA `rank` of a cluster sums, in order."""
+        return range(rank, self.n_chunks, self.cluster)
+
+    @staticmethod
+    def chunk_cells(c: int, n_p: int) -> range:
+        """The cells of chunk c."""
+        return range(c * TRAJ_CELLS, min((c + 1) * TRAJ_CELLS, n_p))
+
+    def n_tiles(self) -> int:
+        nt = self.lanes // TRAJ_TILE
+        return nt * (nt + 1) // 2
+
+    def cta_tiles(self, rank: int) -> range:
+        """The upper 8x8 tiles whose cluster-wide sum CTA `rank` takes
+        (the reduce-scatter)."""
+        return range(rank, self.n_tiles(), self.cluster)
+
+
+def traj_geometry(n_p: int, k: int, itemsize: int) -> TrajGeometry:
+    """The trajectory kernel's cut for n_p sampled cells, k modes and a
+    working type of `itemsize` bytes."""
+    lanes = _round_up(k + 1, TRAJ_LANE_STEP)
+    if lanes > MAX_TRAJ_LANES[torch.float32 if itemsize == 4
+                              else torch.float64]:
+        raise ValueError(f"gn_traj kernel: k={k} needs more shared memory "
+                         f"than a block has ({lanes} live lanes)")
+    return TrajGeometry(lanes, TRAJ_CLUSTER, -(-n_p // TRAJ_CELLS))
 
 # the partial-Gram geometry of the shared passes (csrc/gn_common.cuh)
 GRAM_EDGE = 64     # output block edge: live lanes pad to a multiple
@@ -78,7 +128,7 @@ def _kernel(kind: str, dtype):
 def _traj_kernel(dtype):
     suffix, scalar = SCALARS[dtype]
     return symbol(f"fd_gn_traj_{suffix}",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                   + [scalar, scalar] + [ctypes.c_int] * 3
                   + [scalar, scalar, ctypes.c_void_p])
 
@@ -168,7 +218,8 @@ def gn_traj_cuda(p6p, y0, slbc_p, wgt_p, k: int, hdx: float, hdy: float,
     p6p: (6, n_p, kp) blocks, float32 or float64; y0: (k,) or (B, k);
     slbc_p: (n_p[, 1]) or (B, n_p[, 1]), the padded source + inflow term
     of each trajectory; wgt_p: (n_p[, 1]); all contiguous, of one dtype,
-    on one device. Needs round_up(k + 1, 64) <= MAX_TRAJ_LANES[dtype].
+    on one device. Needs round_up(k + 1, 16) <= MAX_TRAJ_LANES[dtype].
+    One cluster of TRAJ_CLUSTER CTAs runs each trajectory.
     Returns (ys (B?, num_steps, k), its (B?,), evals (B?,)): the reduced
     coords after each step, the Gauss-Newton updates and the systems
     built. Launches on the current stream and does not synchronise;
@@ -190,12 +241,12 @@ def gn_traj_cuda(p6p, y0, slbc_p, wgt_p, k: int, hdx: float, hdy: float,
     check_tensor("slbc_p", slbc_p, device, dtype,
                  [(b, n_p, 1), (b, n_p)] if batched else [(n_p, 1), (n_p,)])
     check_tensor("wgt_p", wgt_p, device, dtype, [(n_p,), (n_p, 1)])
-    k1p = live_lanes(k)
     limit = MAX_TRAJ_LANES[dtype]
-    if not 0 < k < kp or k1p > limit:
+    if not 0 < k < kp or _round_up(k + 1, TRAJ_LANE_STEP) > min(limit, kp):
         raise ValueError(f"gn_traj kernel: k={k} with kp={kp} needs k < kp "
-                         f"and round_up(k + 1, 64) <= {limit} lanes in "
-                         f"{dtype} (the Gram in one CTA's shared memory)")
+                         f"and round_up(k + 1, {TRAJ_LANE_STEP}) <= {limit} "
+                         f"lanes in {dtype} (the Gram in each CTA's shared "
+                         f"memory)")
     if b < 1 or 6 * n_p * kp >= 2 ** 31 or min(num_steps, unroll_its,
                                                  solve_iters) < 0:
         raise ValueError(f"gn_traj kernel: batch {b}, n_p={n_p}, "
@@ -211,7 +262,7 @@ def gn_traj_cuda(p6p, y0, slbc_p, wgt_p, k: int, hdx: float, hdy: float,
         rc = _traj_kernel(dtype)(
             p6p.data_ptr(), y.data_ptr(), slbc_p.data_ptr(),
             wgt_p.data_ptr(), cp.data_ptr(), ys.data_ptr(),
-            stats.data_ptr(), b, n_p, kp, k, k1p, float(hdx), float(hdy),
+            stats.data_ptr(), b, n_p, kp, k, float(hdx), float(hdy),
             int(num_steps), int(unroll_its), int(solve_iters),
             float(relnorm_cutoff), float(min_delta), stream)
     check_launch(rc, "gn_traj")

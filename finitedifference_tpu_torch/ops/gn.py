@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.ops.cuda_gn import (
+    TRAJ_CELLS,
     gn_step_cuda,
     gn_system_cuda,
     gn_traj_cuda,
@@ -109,10 +110,6 @@ class Trajectory(NamedTuple):
     ys: torch.Tensor      # (B?, num_steps, k) reduced coords after each step
     its: torch.Tensor     # (B?,) int: Gauss-Newton updates in all
     evals: torch.Tensor   # (B?,) int: Gauss-Newton systems built
-
-
-# cells per partial Gram of the trajectory engine (csrc/gn_traj.cu)
-TRAJ_CELLS = 32
 
 
 def trajectory_hprom_ref(p6p, y0, slbc_p, wgt_p, k: int, hdx: float,

@@ -4,8 +4,9 @@ Counterpart of finitedifference_tpu/parallel/sweep.py, which vmaps the
 jitted stepper over the μ batch and can shard the batch over a device
 mesh. Here:
 - sweep_hprom(engine="pallas_traj") runs every μ point in ONE launch of
-  the whole-trajectory kernel (csrc/gn_traj.cu, one CTA per point): μ
-  enters only through the per-cell source and inflow term;
+  the whole-trajectory kernel (csrc/gn_traj.cu, one thread block
+  cluster per point): μ enters only through the per-cell source and
+  inflow term;
 - the other engines run one trajectory per μ point in turn. That gives
   vmap's results: vmap masks each point's while-loop, so every point
   takes its own Newton or Gauss-Newton iterations.

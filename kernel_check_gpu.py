@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
-"""Quick check and timing of the redesigned kernels B1 and B3 on one
-NVIDIA GPU, for work on their sources (a minute, where chip_smoke.py takes
-six).
+"""Quick check and timing of the redesigned kernels B1, B3, B6 and B7 on
+one NVIDIA GPU, for work on their sources (a minute or two each, where
+chip_smoke.py takes six).
 
-    python3 kernel_check_gpu.py [b1|b3|all]
+    python3 kernel_check_gpu.py [b1|b3|b6|b7|b6phases|b6variants|b7variants|all]
+    python3 kernel_check_gpu.py times OUT.pt
+    python3 kernel_check_gpu.py diff A.pt B.pt
 
 Builds the kernels and prints the compiler's register and spill report for
-the two kernels. b1: the exact wavefront solve against its plain version
-on a dozen layouts (one warp, two warps, uneven CTAs, the widest), f32 and
-f64: error, exact zeros off the band, two runs bit-equal, equal to the
+them. b1: the exact wavefront solve against its plain version on a dozen
+layouts (one warp, two warps, uneven CTAs, the widest), f32 and f64:
+error, exact zeros off the band, two runs bit-equal, bit-equal to the
 segment kernel with one segment, the time (CUDA events, median of 3 x 20
-calls), and the segment kernel's time beside it. b3: the full-grid system
-against its plain version on small and ragged layouts, then at 750^2 and
-250^2 with 95 modes the time of each geometry in VARIANTS (threads of a
-CTA, CTAs per SM, largest chunk), set through cuda_gn_full.TUNING. Fails
-without a CUDA device or on any disagreement.
+calls),
+and the segment kernel's time beside it. b3: the full-grid system against
+its plain version on small and ragged layouts, then at 750^2 and 250^2
+with 95 modes the time of each geometry in VARIANTS (threads of a CTA,
+CTAs per SM, largest chunk), set through cuda_gn_full.TUNING. b6: the
+whole-trajectory kernel against its plain version on the bench mesh
+layout and on ragged ones (k = 150, k = 60, k = 127; chunks that do not
+divide among the cluster's CTAs), f32 and f64: error, equal GN counts in
+f64, two runs and b = 1 bit-equal to its row of b = 9; then its time for
+1 and 9 points. b7: the segment solve against its plain version on
+chip_smoke.SEG_LAYOUTS, then its time at 750^2 beside B1's. b6phases,
+b6variants and b7variants time throw-away builds of the two kernels, each
+with one phase left out or one constant changed (B6_PHASES at clusters of
+8 and 16, B6_VARIANTS, B7_VARIANTS), for PERF.md's breakdowns; their
+results are never used. times: B1, B7 and B6 on COMPARE_CASES, their
+times and their outputs saved to OUT.pt; run from another checkout with
+this script and chip_smoke.py copied in, it times that checkout's
+kernels on the same inputs, and diff says which outputs of two such files
+are bit-equal. Fails without a CUDA device or on any disagreement.
 """
 
 import re
@@ -25,7 +41,8 @@ import torch
 
 import chip_smoke as cs
 from finitedifference_tpu_torch.grid import Grid2D
-from finitedifference_tpu_torch.ops import _build
+from finitedifference_tpu_torch.ops import _build, gn
+from finitedifference_tpu_torch.ops import cuda_gn as cg
 from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import gn_full as gf
@@ -42,14 +59,16 @@ VARIANTS = {F32: [(384, 1, 32), (384, 1, 16), (192, 2, 16), (192, 2, 8),
                   (288, 1, 32), (96, 4, 8), (96, 3, 16)],
             F64: [(320, 1, 16), (288, 1, 16), (288, 1, 8), (192, 1, 16),
                   (96, 2, 16), (96, 3, 8), (96, 2, 8)]}
+BASE_CSRC = _build.CSRC_DIR
 
 
 def report_build():
     path = _build.build()
     _build.load_library()
     text = path.with_suffix(".ptxas.txt").read_text()
-    pattern = (r"Compiling entry function '(\S*(?:full_system|"
-               r"wavefront_exact)\S*)'.*?\n.*?\n(.*?Used.*?)\n")
+    pattern = (r"Compiling entry function '(\S*(?:full_system|traj_kernel|"
+               r"wavefront_exact|wavefront_seg)\S*)'.*?\n.*?\n(.*?Used.*?)"
+               r"\n")
     for m in re.finditer(pattern, text, re.S):
         print(f"[build] ...{m.group(1)[-40:]}: {m.group(2).strip()[-120:]}")
 
@@ -127,10 +146,8 @@ def check_b1():
             got = cw.solve_skewed_cuda(*args, DT, grid, lay)
             again = cw.solve_skewed_cuda(*args, DT, grid, lay)
             want = sk.solve_skewed_ref(*args, DT, grid, lay)
-            fits_seg = 8 * lay.ny_pad * args[0].element_size() \
-                <= cw.MAX_SHARED_BYTES
             seg1 = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, n_seg=1,
-                                            overlap=0) if fits_seg else got
+                                            overlap=0)
             torch.cuda.synchronize()
             rel = max(cs.rel_err(g, w) for g, w in zip(got, want))
             cs.check(rel <= cs.KERNEL_TOL[dtype], f"B1 {nx}x{ny}: rel {rel}")
@@ -138,13 +155,14 @@ def check_b1():
                      f"B1 {nx}x{ny}: nonzero off the band")
             cs.check(all(torch.equal(a, b) for a, b in zip(got, again)),
                      f"B1 {nx}x{ny}: two runs differ")
-            cs.check(all(torch.equal(a, b) for a, b in zip(got, seg1)),
-                     f"B1 {nx}x{ny}: differs from the one-segment kernel")
+            cs.check(all(torch.equal(a, b) for a, b in zip(seg1, got)),
+                     f"B1 {nx}x{ny}: the one-segment kernel differs")
             ms = cs.cuda_ms(lambda: cw.solve_skewed_cuda(*args, DT, grid,
                                                          lay), calls=20)
             print(f"[b1] {nx}x{ny} layout {lay.nd_pad}x{lay.ny_pad} "
                   f"{str(dtype)[6:]}: rel {rel:.3e}, zeros off band, two "
-                  f"runs bit-equal, equal to one segment; {ms:.4f} ms",
+                  f"runs and the one-segment kernel bit-equal; "
+                  f"{ms:.4f} ms",
                   flush=True)
     grid = Grid2D(nx=750, ny=750)
     lay = sk.make_layout(grid)
@@ -156,21 +174,367 @@ def check_b1():
               f"{str(dtype)[6:]}: {ms:.4f} ms")
 
 
+def check_b6():
+    """B6 against its plain version: error, equal GN counts in f64, two
+    runs bit-equal, the b = 1 run bit-equal to the same point's row of the
+    b = 9 launch; then its time at the bench mesh layout for each cluster
+    size in TRAJ_CLUSTERS."""
+    steps = cs.TRAJ_STEPS
+    # (n, k, sampled cells, dtype): the bench layout; k = 150 (kp 256) in
+    # f32; an n_p the cluster's CTAs do not split evenly (7 chunks, the
+    # last one ragged); a k + 1 on no 16-lane boundary
+    cases = [(250, 95, 1508, F32), (250, 95, 1508, F64),
+             (24, 150, 220, F32), (40, 60, 205, F64), (40, 60, 205, F32),
+             (24, 127, 300, F64)]
+    for n, k, n_cells, dtype in cases:
+        args = cs.traj_inputs(n, k, n_cells, dtype, 9)
+        p6p = args[0]
+        geo = cg.traj_geometry(p6p.shape[1], k, p6p.element_size())
+        tol = 1e-10 if dtype == F64 else 1e-4
+        got = gn.trajectory_hprom(*args, steps)
+        again = gn.trajectory_hprom(*args, steps)
+        one = gn.trajectory_hprom(args[0], args[1][4:5].contiguous(),
+                                  args[2][4:5].contiguous(), *args[3:],
+                                  steps)
+        want = gn.trajectory_hprom_ref(*args, steps)
+        torch.cuda.synchronize()
+        rel = cs.rel_err(got.ys, want.ys)
+        cs.check(bool(torch.isfinite(got.ys).all()), f"B6 {n, k}: not finite")
+        cs.check(rel <= tol, f"B6 {n, k, dtype}: rel {rel}")
+        if dtype == F64:
+            cs.check(torch.equal(got.its, want.its)
+                     and torch.equal(got.evals, want.evals),
+                     f"B6 {n, k}: counts {got.its.tolist()} vs "
+                     f"{want.its.tolist()}")
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"B6 {n, k, dtype}: two runs differ")
+        cs.check(torch.equal(one.ys, got.ys[4:5]),
+                 f"B6 {n, k, dtype}: b = 1 differs from its row of b = 9")
+        print(f"[b6] {n}x{n} k {k} layout {tuple(p6p.shape)} "
+              f"{str(dtype)[6:]} 9 points: {geo.lanes} lanes, "
+              f"{geo.n_chunks} chunks over {geo.cluster} CTAs: rel "
+              f"{rel:.3e}, GN its {got.its.tolist()} (plain "
+              f"{want.its.tolist()}), two runs and b = 1 bit-equal",
+              flush=True)
+    time_b6("b6", F32, F64)
+
+
+def time_b6(tag, *dtypes, **kw):
+    """B6's time at the bench mesh layout, 1 and 9 points x 50 steps."""
+    for dtype in dtypes:
+        full = cs.traj_inputs(250, 95, 1508, dtype, 9)
+        for b in (1, 9):
+            args = (full[0], full[1][:b].contiguous(),
+                    full[2][:b].contiguous(), *full[3:], cs.TRAJ_STEPS)
+            ms = cs.cuda_ms(lambda: gn.trajectory_hprom(*args, **kw),
+                            calls=1)
+            print(f"[{tag}] 250x250 bench layout {str(dtype)[6:]} {b} "
+                  f"point(s) x {cs.TRAJ_STEPS} steps: {ms:.3f} ms",
+                  flush=True)
+
+
+# B6 variants, each a throw-away build: (what changes, [(old, new)] in
+# csrc/gn_traj.cu). A cluster above 8 CTAs is not portable: the kernel
+# must allow it before the launch.
+CLUSTER_16 = [
+    ("constexpr int kCluster = 8;", "constexpr int kCluster = 16;"),
+    ("  if (err != cudaSuccess) return err;\n  cudaLaunchConfig_t cfg",
+     "  if (err != cudaSuccess) return err;\n  err = cudaFuncSetAttribute("
+     "kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+     "  if (err != cudaSuccess) return err;\n  cudaLaunchConfig_t cfg")]
+B6_VARIANTS = [
+    ("nothing", []),
+    ("a cluster of 16 CTAs", CLUSTER_16),
+    ("at most 288 threads (f32), 320 (f64)", [
+        ("Threads<float> { static constexpr int value = 384; }",
+         "Threads<float> { static constexpr int value = 288; }"),
+        ("Threads<double> { static constexpr int value = 192; }",
+         "Threads<double> { static constexpr int value = 320; }")]),
+]
+
+
+def edited(text, edits, what):
+    """`text` with each (old, new) of `edits` made; fails if an old piece
+    is missing."""
+    for old, new in edits:
+        old = old.replace("\\n", "\n")
+        new = new.replace("\\n", "\n")
+        cs.check(old in text, f"{what}: {old!r} not found")
+        text = text.replace(old, new)
+    return text
+
+
+def check_b6_variants():
+    """B6's time at the bench mesh layout in each of B6_VARIANTS."""
+    text = (BASE_CSRC / "gn_traj.cu").read_text()
+    for i, (what, edits) in enumerate(B6_VARIANTS):
+        build_variant(f"b6v_{i}", "gn_traj.cu",
+                      edited(text, edits, f"B6 variant {what}"))
+        time_b6(f"b6-variants] [{what}", F32, F64)
+    _build.CSRC_DIR = BASE_CSRC
+
+
+# B6's phases, each left out in a throw-away build (FD_SKIP bit: the code
+# that bit guards); what is left is timed with the stopping rules off, so
+# every variant builds 3 systems and runs 3 CGs a step
+B6_PHASES = {
+    1: ("products", ["        for (int r = group; r < 2 * cells; "
+                     "r += n_groups) {"]),
+    2: ("CG", ["        cluster_cg(gram, lanes, k, solve_iters, pv, qpart, "
+               "y);"]),
+    4: ("reduce-scatter and all-gather", [
+        "      for (int e = tid; e < own_tiles * kTile * kTile; "
+        "e += nthreads) {",
+        "      for (int e0 = tid; e0 < n_tiles * kTile * kTile;"]),
+    8: ("scalars and rows", [
+        "        for (int c = tid / kTeam; c < cells; c += nthreads / kTeam) {",
+        "        for (int e = tid; e < cells * pieces; e += nthreads) {"]),
+    16: ("chunk sums into the partial", [
+        "        if (j % spc == spc - 1 || !more) {"]),
+    32: ("bulk copies", ["    for (int e = tid; e < 6 * valid; "
+                         "e += nthreads) {"]),
+    64: ("cluster barriers of a system", [
+        "      cluster.sync();\n      const int own_tiles",
+        "      cluster.sync();\n      // all-gather"]),
+}
+
+
+def variant_source(text, skip):
+    """gn_traj.cu with the fragments of the FD_SKIP bits in `skip` behind
+    an `if`: a throw-away build for timing, never a result."""
+    text = "#define FD_SKIP " + str(skip) + "\n" + text
+    text = text.replace("barrier_expect(bar, 6 * valid * row_bytes)",
+                        "barrier_expect(bar, (FD_SKIP & 32) ? 0 : "
+                        "6 * valid * row_bytes)")
+    for bit, (_, fragments) in B6_PHASES.items():
+        for frag in fragments:
+            frag = frag.replace("\\n", "\n")
+            cs.check(frag in text, f"B6 phase {bit}: fragment not found")
+            if frag.lstrip().startswith("if ("):
+                text = text.replace(frag, frag.replace(
+                    "if (", f"if (!(FD_SKIP & {bit}) && (", 1).replace(
+                    ") {", ")) {", 1))
+            else:
+                indent = frag[:len(frag) - len(frag.lstrip())]
+                text = text.replace(frag, f"{indent}if (!(FD_SKIP & {bit}))"
+                                    f"\n{frag}")
+    return text
+
+
+def build_variant(name, source, text):
+    """Build the package's sources with csrc/`source` replaced by `text`
+    into a throw-away library, and load it in place of the real one."""
+    import shutil
+    csrc = _build.PKG_DIR / "_build" / "variants" / name
+    if csrc.exists():
+        shutil.rmtree(csrc)
+    shutil.copytree(BASE_CSRC, csrc)
+    (csrc / source).write_text(text)
+    _build.CSRC_DIR = csrc
+    _build.load_library.cache_clear()
+    cg._traj_kernel.cache_clear()
+    cw._kernel.cache_clear()
+    _build.build()
+
+
+# B7 variants, each a throw-away build: (what changes, [(old, new)] in
+# csrc/wavefront.cu)
+B7_VARIANTS = [
+    ("nothing", []),
+    ("no input loads", [("    load_block(d0 + K, nxt);\n", "")]),
+    ("no stores", [("        if (own_d && r < ny_pad) {",
+                    "        if (false) {")]),
+    ("no hand-off waits", [
+        ("      barrier_wait(my_full + 8 * slot, (m / kSegRing) & 1);\n", ""),
+        ("      if (m >= kSegRing)\n        barrier_wait(", "      if (false)\n"
+         "        barrier_wait(")]),
+    ("no reciprocal pass", [("  seg_inverse_kernel<T><<<", "  if (false) "
+                             "seg_inverse_kernel<T><<<")]),
+    ("3 rows a lane in 8 warps", [
+        ("ny_pad <= 32 * 2 * 12", "ny_pad <= 32 * 3 * 8"),
+        ("launch_rows<T, 2, kMainK, 12>", "launch_rows<T, 3, kMainK, 8>")]),
+    ("1 row a lane in 24 warps", [
+        ("ny_pad <= 32 * 2 * 12", "ny_pad <= 32 * 1 * 24"),
+        ("launch_rows<T, 2, kMainK, 12>", "launch_rows<T, 1, kMainK, 24>")]),
+    ("hand-off every 8 diagonals (f32), 4 (f64)", [
+        ("constexpr int kMainK = sizeof(T) == sizeof(float) ? 4 : 2;",
+         "constexpr int kMainK = sizeof(T) == sizeof(float) ? 8 : 4;")]),
+    ("hand-off every 2 diagonals (f32), 1 (f64)", [
+        ("constexpr int kMainK = sizeof(T) == sizeof(float) ? 4 : 2;",
+         "constexpr int kMainK = sizeof(T) == sizeof(float) ? 2 : 1;")]),
+]
+
+
+def check_b7_variants():
+    """B7's time at 750^2 (n_seg 8, overlap 64) in each of B7_VARIANTS."""
+    text = (BASE_CSRC / "wavefront.cu").read_text()
+    grid = Grid2D(nx=750, ny=750)
+    lay = sk.make_layout(grid)
+    args = {dtype: cs.skewed_inputs(lay, dtype, seed=7)
+            for dtype in (F32, F64)}
+    for i, (what, edits) in enumerate(B7_VARIANTS):
+        build_variant(f"b7_{i}", "wavefront.cu",
+                      edited(text, edits, f"B7 variant {what}"))
+        for dtype in (F32, F64):
+            ms = cs.cuda_ms(lambda: cw.solve_skewed_seg_cuda(
+                *args[dtype], DT, grid, lay, n_seg=cs.SEG,
+                overlap=cs.SEG_OVERLAP), calls=50)
+            print(f"[b7-variants] 750x750 n_seg {cs.SEG} overlap "
+                  f"{cs.SEG_OVERLAP} {str(dtype)[6:]}, {what}: {ms:.4f} ms",
+                  flush=True)
+    _build.CSRC_DIR = BASE_CSRC
+
+
+def check_b6_phases():
+    """B6's time at the bench mesh layout (f32, 50 steps) with each phase
+    in B6_PHASES left out in turn, stopping rules off, at a cluster of 8
+    CTAs and of 16."""
+    text = (BASE_CSRC / "gn_traj.cu").read_text()
+    kw = dict(relnorm_cutoff=0.0, min_delta=-1.0)
+    for skip in [0, *B6_PHASES]:
+        what = B6_PHASES[skip][0] if skip else "nothing"
+        for cluster, edits in ((8, []), (16, CLUSTER_16)):
+            build_variant(f"b6_{skip}_{cluster}", "gn_traj.cu",
+                          edited(variant_source(text, skip), edits,
+                                 f"B6 cluster {cluster}"))
+            time_b6(f"b6-phases] [3 systems and 3 CGs a step, cluster "
+                    f"{cluster}, without {what}", F32, **kw)
+    _build.CSRC_DIR = BASE_CSRC
+
+
+def check_b7():
+    """B7 against its plain version on chip_smoke's SEG_LAYOUTS, f32 and
+    f64 (chip_smoke.seg_layout_check); then its time at 750^2 beside
+    B1's."""
+    for layout in cs.SEG_LAYOUTS:
+        for dtype in (F32, F64):
+            rel = cs.seg_layout_check(*layout, dtype)
+            print(f"[b7] {layout} {str(dtype)[6:]}: rel {rel:.3e}, zeros "
+                  f"off band, two runs bit-equal", flush=True)
+    grid = Grid2D(nx=750, ny=750)
+    lay = sk.make_layout(grid)
+    for dtype in (F32, F64):
+        args = cs.skewed_inputs(lay, dtype, seed=7)
+        ms = cs.cuda_ms(lambda: cw.solve_skewed_seg_cuda(
+            *args, DT, grid, lay, n_seg=cs.SEG, overlap=cs.SEG_OVERLAP),
+            calls=50)
+        b1 = cs.cuda_ms(lambda: cw.solve_skewed_cuda(*args, DT, grid, lay),
+                        calls=50)
+        print(f"[b7] 750x750 n_seg {cs.SEG} overlap {cs.SEG_OVERLAP} "
+              f"{str(dtype)[6:]}: {ms:.4f} ms (B1 {b1:.4f} ms)", flush=True)
+
+
+# the cases `times` saves: (kernel, nx, ny, n_seg, overlap) for B1 and
+# B7, the main path's layouts, one segment (B1's solve) and four above
+# 768 rows (ny_pad 1024, 1152, 2048, 2176); (kernel, points) for B6 at
+# the bench mesh layout
+COMPARE_CASES = [("B1", 750, 750, 1, 0), ("B7", 750, 750, 1, 0),
+                 ("B7", 750, 750, 8, 64),
+                 ("B7", 40, 1000, 4, 32), ("B7", 40, 1100, 4, 32),
+                 ("B7", 20, 2000, 16, 8), ("B7", 20, 2100, 16, 8),
+                 ("B6", 1), ("B6", 9)]
+
+
+def times(out):
+    """The time (CUDA events, median of 3) and the outputs of each of
+    COMPARE_CASES in f32 and f64, the outputs saved to `out`."""
+    saved = {}
+    for case in COMPARE_CASES:
+        for dtype in (F32, F64):
+            if case[0] == "B6":
+                full = cs.traj_inputs(250, 95, 1508, dtype, 9)
+                args = (full[0], full[1][:case[1]].contiguous(),
+                        full[2][:case[1]].contiguous(), *full[3:],
+                        cs.TRAJ_STEPS)
+
+                def fn(args=args):
+                    return gn.trajectory_hprom(*args)
+                calls = 1
+                key = (f"B6 250x250 bench layout {case[1]} point(s) x "
+                       f"{cs.TRAJ_STEPS} steps")
+            else:
+                kernel, nx, ny, n_seg, overlap = case
+                grid = Grid2D(nx=nx, ny=ny)
+                lay = sk.make_layout(grid)
+                args = cs.skewed_inputs(lay, dtype, seed=7)
+                if kernel == "B1":
+                    def fn(args=args, grid=grid, lay=lay):
+                        return cw.solve_skewed_cuda(*args, DT, grid, lay)
+                else:
+                    def fn(args=args, grid=grid, lay=lay, n_seg=n_seg,
+                           overlap=overlap):
+                        return cw.solve_skewed_seg_cuda(
+                            *args, DT, grid, lay, n_seg=n_seg,
+                            overlap=overlap)
+                calls = 50
+                key = (f"{kernel} {nx}x{ny} layout {lay.nd_pad}x"
+                       f"{lay.ny_pad} n_seg {n_seg} overlap {overlap}")
+            key += f" {str(dtype)[6:]}"
+            got = fn()
+            ms = cs.cuda_ms(fn, calls=calls)
+            saved[key] = [g.cpu() for g in got]
+            print(f"[times] {key}: {ms:.4f} ms", flush=True)
+    for dtype in ("float32", "float64"):
+        b1, b7 = (saved[f"{kernel} 750x750 layout 1536x768 n_seg 1 overlap "
+                        f"0 {dtype}"] for kernel in ("B1", "B7"))
+        same = all(torch.equal(x, y) for x, y in zip(b1, b7))
+        word = "bit-equal to" if same else "differs from"
+        print(f"[times] B7 with one segment {word} B1 at 750x750 {dtype}",
+              flush=True)
+    torch.save(saved, out)
+
+
+def diff(a, b):
+    """Which outputs of two `times` files are bit-equal, and how far apart
+    the others are."""
+    first, second = torch.load(a), torch.load(b)
+    for key, xs in first.items():
+        ys = second[key]
+        if all(torch.equal(x, y) for x, y in zip(xs, ys)):
+            print(f"[diff] {key}: bit-equal")
+        else:
+            gap = max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+            rel = max(cs.rel_err(x, y) for x, y in zip(xs, ys)
+                      if x.is_floating_point())
+            print(f"[diff] {key}: max abs difference {gap:.3e}, rel "
+                  f"{rel:.3e}")
+
+
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    cs.check(what in ("b1", "b3", "all"), "usage: kernel_check_gpu.py "
-             "[b1|b3|all]")
+    modes = ("b1", "b3", "b6", "b6phases", "b6variants", "b7", "b7variants",
+             "all")
+    if what == "diff":
+        diff(sys.argv[2], sys.argv[3])
+        return
+    cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
+             "[b1|b3|b6|b6phases|b6variants|b7|b7variants|all] | times "
+             "OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
+    if what == "times":
+        times(sys.argv[2])
+        print(card)
+        return
     report_build()
     if what in ("b3", "all"):
         check_b3()
     if what in ("b1", "all"):
         check_b1()
+    if what in ("b6", "all"):
+        check_b6()
+    if what == "b6phases":
+        check_b6_phases()
+    if what == "b6variants":
+        check_b6_variants()
+    if what == "b7variants":
+        check_b7_variants()
+    if what in ("b7", "all"):
+        check_b7()
     print(card)
 
 

@@ -98,6 +98,33 @@ def test_traj_kernel_matches_plain(cuda, dtype, k, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k,n_cells", [(F32, 95, 220), (F64, 95, 220),
+                                             (F32, 150, 220), (F64, 60, 40)],
+                         ids=["f32_7chunks", "f64_7chunks", "f32_kp256",
+                              "f64_2chunks"])
+def test_traj_kernel_is_deterministic_and_batch_free(cuda, dtype, k,
+                                                     n_cells):
+    """Two launches give the same bits, and so does each point alone
+    against its row of the 9-point launch: the cluster's geometry and its
+    reductions are fixed by the shape, never by the batch. The layouts
+    leave the cluster's 8 CTAs uneven work (7 chunks of 32 cells; 2)."""
+    grid, mesh, p6p, wgt_p, y0 = traj_problem(k, dtype, cuda, n_cells)
+    geo = cg.traj_geometry(p6p.shape[1], k, p6p.element_size())
+    assert geo.n_chunks % geo.cluster != 0
+    yb, slbc = batch_inputs(grid, mesh, p6p, y0, 9)
+    hd = (0.5 * DT / grid.dx, 0.5 * DT / grid.dy)
+    got = gn.trajectory_hprom(p6p, yb, slbc, wgt_p, k, *hd, 20)
+    again = gn.trajectory_hprom(p6p, yb, slbc, wgt_p, k, *hd, 20)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i in (0, 4, 8):
+        one = gn.trajectory_hprom(p6p, yb[i:i + 1].contiguous(),
+                                  slbc[i:i + 1].contiguous(), wgt_p, k, *hd,
+                                  20)
+        assert torch.equal(one.ys[0], got.ys[i])
+        assert int(one.its[0]) == int(got.its[i])
+
+
+@pytest.mark.cuda
 def test_pallas_traj_hprom_on_card_matches_cpu(cuda):
     """The engine in f64 on the card (one launch) against its CPU run
     (the plain version): within 1e-10, equal counts."""
@@ -141,8 +168,9 @@ def test_pallas_traj_sweep_is_one_launch(cuda):
 
 @pytest.mark.cuda
 def test_traj_dispatch_raises_on_what_the_kernel_does_not_take(cuda):
-    """f64 at 150 modes (a 192-lane float64 Gram would need 295 KB of
-    shared memory) and float16 raise, naming the limit; no launch."""
+    """f64 at 150 modes (a 160-lane float64 Gram and partial do not fit
+    a CTA's shared memory) and float16 raise, naming the limit; no
+    launch."""
     before = cg.TRAJ_LAUNCHES
     grid, mesh, p6p, wgt_p, y0 = traj_problem(150, F64, cuda)
     slbc = rf.traj_source(grid, mesh, DT, *MUS[0], p6p.shape[1], F64)

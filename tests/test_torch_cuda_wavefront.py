@@ -147,12 +147,20 @@ def test_skewed_trajectory_matches_cpu(cuda):
 @pytest.mark.parametrize("shape,n_seg,overlap", [
     ((13, 5), 4, 16), ((750, 750), 8, 64), ((750, 750), 16, 64),
     ((40, 1100), 4, 32), ((20, 2100), 16, 8), ((64, 64), 1, 0),
-    ((13, 5), 14, 0)])
+    ((13, 5), 14, 0), ((40, 1000), 4, 32), ((1000, 40), 8, 64),
+    ((30, 900), 8, 64), ((750, 750), 7, 64), ((750, 750), 8, 0),
+    ((200, 200), 8, 100), ((40, 1100), 1, 0), ((20, 2000), 1, 0),
+    ((20, 2100), 1, 0)])
 def test_seg_kernel_matches_plain(cuda, shape, n_seg, overlap, dtype, tol):
     """B7 against solve_skewed_seg_ref: f32 within 1e-5, f64 within 1e-12
-    (rounding only), exact zeros off the band, one launch; ny_pad > 1024
-    in the 1100 and 2100 rows; n_seg = 1, overlap = 0 is B1; at (13, 5)
-    the last of 14 segments of 10 diagonals owns none of the 128."""
+    (rounding only), exact zeros off the band, two runs bit-equal, one
+    launch; ny_pad > 1024 in the 1100 and 2100 rows; ny_pad 2176 no
+    multiple of the 256 rows a warp holds at 8 rows a lane; ny far below
+    (1000, 40) and far above (30, 900) nx; 7 segments do not divide nd_pad
+    1536; overlap 0, and overlap 100 >= seg_len 64 at 200^2; n_seg = 1,
+    overlap = 0 is B1's solve, bit for bit, in each band of rows a lane
+    (ny_pad 128, 1152, 2048, 2176); at (13, 5) the last of 14 segments of
+    10 diagonals owns none of the 128."""
     nx, ny = shape
     grid = Grid2D(nx=nx, ny=ny)
     lay = sk.make_layout(grid)
@@ -163,7 +171,10 @@ def test_seg_kernel_matches_plain(cuda, shape, n_seg, overlap, dtype, tol):
     assert (cw.LAUNCHES, cw.SEG_LAUNCHES) == (before[0], before[1] + 1)
     want = sk.solve_skewed_seg_ref(*args, DT, grid, lay, n_seg=n_seg,
                                    overlap=overlap)
+    again = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, n_seg=n_seg,
+                                     overlap=overlap)
     torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     off_band = ~sk.valid_mask(lay, torch.bool, cuda)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
@@ -174,6 +185,24 @@ def test_seg_kernel_matches_plain(cuda, shape, n_seg, overlap, dtype, tol):
     if n_seg == 1:
         exact = cw.solve_skewed_cuda(*args, DT, grid, lay)
         assert all(torch.equal(g, e) for g, e in zip(got, exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_seg_kernel_is_deterministic_under_load(cuda, dtype):
+    """Ten segment solves in a row, other work on the card in between,
+    give the same bits: the hand-off between a segment's warps is fixed
+    by the shape, not by how the warps happen to be staggered."""
+    grid = Grid2D(nx=750, ny=750)
+    lay = sk.make_layout(grid)
+    args = skewed_inputs(lay, dtype, cuda, seed=4)
+    kw = dict(n_seg=8, overlap=64)
+    first = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+    busy = torch.randn((2048, 2048), device=cuda)
+    for _ in range(10):
+        busy = busy @ busy.T / 2048
+        again = cw.solve_skewed_seg_cuda(*args, DT, grid, lay, **kw)
+        assert all(torch.equal(f, a) for f, a in zip(first, again))
 
 
 @pytest.mark.cuda
