@@ -28,7 +28,11 @@ Phases, each printing its own lines:
    layout whose chunks do not divide among the CTAs and whose k + 1 is
    no multiple of the lane granularity, B4 (gn_sampled_system) and B5
    (gn_sampled_step) at the 250^2 synthetic-mesh layout (1508 sampled
-   cells, 95 modes): error and both times (CUDA events, median of 3);
+   cells, 95 modes): error, two runs bit-equal, the eager time launch to
+   launch and the plain version's (CUDA events, median of 3), the device
+   time a call from a CUDA graph of 50 calls, and one device kernel a
+   call (torch.profiler); then B4 and B5 at 150 modes on 1000 cells,
+   whose short last chunk and 63 chunks do not divide among the CTAs;
 8. the 250^2 ROM path: FOM snapshots at (4.25, 0.0225), a 95-mode rSVD
    POD basis, then 500 steps at (4.75, 0.02) of lspg_prom and
    pallas_prom, and on the bench.py mesh (512 interior cells and the
@@ -288,8 +292,10 @@ def phase_kernel_vs_plain(card):
                 plain_ms = cuda_ms(
                     lambda: sk.solve_skewed_ref(*args, DT, grid, lay),
                     calls=1)
+                # each of the band's cells read and written once: the
+                # skew's padding is not the function's data
                 bound_ms, bound_by = bound(
-                    6 * lay.nd_pad * lay.ny_pad * args[0].element_size(),
+                    6 * nx * ny * args[0].element_size(),
                     WAVEFRONT_OPS * nx * ny, dtype)
                 line += (f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
                          f"ms ({bound_by})")
@@ -486,12 +492,14 @@ def phase_gn_kernels(card):
             torch.cuda.synchronize()
             ms = cuda_ms(lambda: gf.gn_full_system(*args), calls=20)
             plain_ms = cuda_ms(lambda: gf.gn_full_ref(*args, False), calls=3)
-            n_pad, kp = vu.shape
-            # the two basis halves, y, cp, the mask and the float64 Gram;
-            # a GEMV per half, the rows pass, the symmetric Gram
-            nbytes = (2 * n_pad * kp + k + 3 * n_pad) * vu.element_size() \
+            kp = vu.shape[1]
+            # what the function needs: the live lanes of the two basis
+            # halves on the live rows, y, their cp and mask, the float64
+            # Gram; a GEMV per half, the rows pass, the symmetric Gram
+            n_live = int(torch.count_nonzero(dmask))
+            nbytes = (2 * n_live * k + k + 3 * n_live) * vu.element_size() \
                 + 8 * kp * kp
-            ops = gram_ops(2 * n_pad, k) + 22 * n_pad * k
+            ops = gram_ops(2 * n_live, k) + 22 * n_live * k
             out["gn_full"][(n, dtype)] = compare(
                 f"gn_full {n}x{n} layout {tuple(vu.shape)} "
                 f"{str(dtype)[6:]}", (got, g0, cp0), (want, w0, wcp),
@@ -506,30 +514,146 @@ def phase_gn_kernels(card):
         layout = tuple(args[0].shape)
         _, n_p, kp = layout
         k, e = args[4], args[0].element_size()
-        # the blocks, y, cp, the weights; six GEMVs, the rows pass, the
-        # symmetric Gram; the step adds the CG and writes (2, kp)
-        inputs = (6 * n_p * kp + k + 3 * n_p) * e
-        system_ops = gram_ops(2 * n_p, k) + 30 * n_p * k
+        ws = gn.sampled_workspace(args[0], k)
+        # what the function needs: the live lanes of the blocks on the
+        # cells of nonzero weight, y, their cp and weights; six dot
+        # products a cell, the rows, the symmetric Gram; the system writes
+        # gext (kp, kp), the step adds the CG and writes dy and rn
+        n_live = int(torch.count_nonzero(args[3]))
+        inputs = (6 * n_live * k + k + 3 * n_live) * e
+        system_ops = gram_ops(2 * n_live, k) + 30 * n_live * k
         cg_ops = rf.CG_ITERS * (2 * k * k + 10 * k)
-        got = gn.gn_system(*args)
-        want = gn.gn_system_ref(*args)
-        ms = cuda_ms(lambda: gn.gn_system(*args), calls=50)
-        plain_ms = cuda_ms(lambda: gn.gn_system_ref(*args), calls=10)
-        out["gn_sampled_system"][(ROM_N, dtype)] = compare(
-            f"gn_sampled_system {ROM_N}x{ROM_N} mesh layout {layout} "
-            f"{str(dtype)[6:]}", (got,), (want,), GN_TOL[dtype], card, ms,
-            plain_ms, inputs + kp * kp * e, system_ops, dtype)
-        dy, rn = gn.gn_step(*args)
-        wdy, wrn = gn.gn_step_ref(*args)
-        ms = cuda_ms(lambda: gn.gn_step(*args), calls=50)
-        plain_ms = cuda_ms(lambda: gn.gn_step_ref(*args), calls=10)
-        # the CG carries the Gram's rounding through 24 iterations
-        out["gn_sampled_step"][(ROM_N, dtype)] = compare(
-            f"gn_sampled_step {ROM_N}x{ROM_N} mesh layout {layout} "
-            f"{str(dtype)[6:]} (dy, rn)", (dy, rn), (wdy, wrn),
-            100 * GN_TOL[dtype], card, ms, plain_ms, inputs + 2 * kp * e,
-            system_ops + cg_ops, dtype)
+        for name, fn, ref, tol, nbytes, ops in (
+                ("gn_sampled_system",
+                 lambda: (gn.gn_system(*args, workspace=ws),),
+                 lambda: (gn.gn_system_ref(*args),), GN_TOL[dtype],
+                 inputs + kp * kp * e, system_ops),
+                # the CG carries the Gram's rounding through 24 iterations
+                ("gn_sampled_step", lambda: gn.gn_step(*args, workspace=ws),
+                 lambda: gn.gn_step_ref(*args), 100 * GN_TOL[dtype],
+                 inputs + (k + 1) * e, system_ops + cg_ops)):
+            got = fn()
+            want = ref()
+            again = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {dtype}: two runs differ")
+            ms = cuda_ms(fn, calls=50)
+            plain_ms = cuda_ms(ref, calls=10)
+            ms_device = graph_ms(fn, calls=50)
+            per_call, kernels = device_kernels_per_call({name: fn})[name]
+            check(per_call == 1, f"{name} {dtype}: {per_call} device "
+                  f"kernels a call ({kernels})")
+            out[name][(ROM_N, dtype)] = compare(
+                f"{name} {ROM_N}x{ROM_N} mesh layout {layout} "
+                f"{str(dtype)[6:]}", got, want, tol, card, ms, plain_ms,
+                nbytes, ops, dtype)
+            out[name][(ROM_N, dtype)]["ms_device"] = ms_device
+            print(f"[gn-kernel] {name} {str(dtype)[6:]}: device "
+                  f"{ms_device:.4f} ms a call (CUDA graph of 50 calls), "
+                  f"eager {ms:.4f} ms launch to launch, {per_call} device "
+                  f"kernel a call ({kernels[0]}), two runs bit-equal "
+                  f"({card})")
+        del ws
+    phase_gn_sampled_ragged(card)
     return out
+
+
+def graph_ms(fn, calls):
+    """Device ms a call: `calls` calls captured in one CUDA graph and
+    replayed under CUDA events (median of REPS replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, calls=1) / calls
+    del graph
+    return ms
+
+
+def device_kernels_per_call(fns, calls=10, windows=3):
+    """{name: (device kernels a call, their names)} for each function of
+    `fns`, counted by torch.profiler over `calls` calls after a warm-up
+    call. The profiler has dropped a kernel event now and then on the
+    H100 (9 kernels for 10 calls once): a function is counted in up to
+    `windows` windows and the largest count kept, since a dropped event
+    can only lower a count."""
+    out = {}
+    for name, fn in fns.items():
+        best = (-1.0, [])
+        for _ in range(windows):
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.count) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            count = sum(c for _, c in rows) / calls
+            if count > best[0]:
+                best = (count, [key[:60] for key, _ in rows])
+            if count >= 1:
+                break
+        out[name] = best
+    return out
+
+
+def phase_gn_sampled_ragged(card):
+    """B4 and B5 where their geometry is uneven: 150 modes (kp 256, 160
+    live lanes) on 1000 cells, so the last chunk is short and the 63
+    chunks do not divide among the clusters' CTAs; f32 and f64, two runs
+    bit-equal."""
+    n_s, k = 1000, 150
+    for dtype in (F32, F64):
+        gen = torch.Generator(device=DEVICE).manual_seed(n_s)
+        p6 = torch.randn((6, n_s, k), generator=gen, dtype=dtype,
+                         device=DEVICE) / k ** 0.5
+        wgt = 1 + torch.rand(n_s, generator=gen, dtype=dtype, device=DEVICE)
+        p6p, wgt_p = gn.pad_factored_inputs(p6, wgt, tile=8, dtype=dtype)
+        y = torch.randn(k, generator=gen, dtype=dtype, device=DEVICE)
+        cp = 0.1 * torch.randn((p6p.shape[1], 2), generator=gen,
+                               dtype=dtype, device=DEVICE)
+        args = (p6p, y, cp, wgt_p, k, 0.5 * DT, 0.25 * DT)
+        n_p = p6p.shape[1]
+        geo = cg.sampled_geometry(n_p, k, p6p.element_size())
+        check(n_p % geo.cells != 0
+              and geo.n_chunks % (geo.n_clusters * geo.cluster) != 0,
+              f"gn_sampled ragged layout is even: {geo}")
+        ws = gn.sampled_workspace(p6p, k)
+        got = gn.gn_system(*args, workspace=ws)
+        again = gn.gn_system(*args, workspace=ws)
+        dy, rn = gn.gn_step(*args, workspace=ws)
+        dy2, rn2 = gn.gn_step(*args, workspace=ws)
+        want = gn.gn_system_ref(*args, 8)
+        wdy, wrn = gn.gn_step_ref(*args, 8)
+        torch.cuda.synchronize()
+        rel_sys = rel_err(got, want)
+        rel_step = max(rel_err(dy, wdy), rel_err(rn, wrn))
+        check(rel_sys <= GN_TOL[dtype], f"gn_sampled_system ragged {dtype}: "
+              f"rel {rel_sys}")
+        check(rel_step <= 100 * GN_TOL[dtype], f"gn_sampled_step ragged "
+              f"{dtype}: rel {rel_step}")
+        check(torch.equal(got, again) and torch.equal(dy, dy2)
+              and torch.equal(rn, rn2), f"gn_sampled ragged {dtype}: two "
+              f"runs differ")
+        check(bool((got[k + 1:] == 0).all() and (got[:, k + 1:] == 0).all()),
+              f"gn_sampled_system ragged {dtype}: nonzero beyond lane k")
+        print(f"[gn-kernel] gn_sampled {n_s} cells k {k} layout "
+              f"{tuple(p6p.shape)} {str(dtype)[6:]}: {geo.n_chunks} chunks "
+              f"of {geo.cells} cells over {geo.n_clusters} clusters "
+              f"of {geo.cluster} CTAs, {geo.lanes} live lanes: system rel "
+              f"{rel_sys:.3e} (tol {GN_TOL[dtype]:g}), step rel "
+              f"{rel_step:.3e} (tol {100 * GN_TOL[dtype]:g}), two runs "
+              f"bit-equal, zeros beyond lane k ({card})")
 
 
 def phase_gn_full_ragged(card):
@@ -909,7 +1033,7 @@ def phase_seg_kernel(card):
                         calls=50)
         plain_ms = cuda_ms(lambda: sk.solve_skewed_seg_ref(
             *args, DT, grid, lay, **kw), calls=1)
-        nbytes = 6 * lay.nd_pad * lay.ny_pad * args[0].element_size()
+        nbytes = 6 * grid.n_cells * args[0].element_size()
         bound_ms, bound_by = bound(nbytes, WAVEFRONT_OPS * cells, dtype)
         print(f"[seg-kernel] {MAIN_N}x{MAIN_N} layout {lay.nd_pad}x"
               f"{lay.ny_pad} n_seg {SEG} overlap {SEG_OVERLAP} "
@@ -1002,12 +1126,13 @@ def traj_inputs(n, k, n_cells, dtype, b, seed=11, device="cuda"):
     return p6p, y0.expand(b, -1).contiguous(), slbc, wgt_p, k, *hd
 
 
-def traj_bound(p6p, k, steps, b, its, evals, iters=rf.CG_ITERS):
+def traj_bound(p6p, wgt_p, k, steps, b, its, evals, iters=rf.CG_ITERS):
     """B6's bound for one launch, from the systems it built and the
-    updates it made."""
-    _, n_p, kp = p6p.shape
+    updates it made, over the live lanes of the cells of nonzero
+    weight."""
+    n_p = int(torch.count_nonzero(wgt_p))
     e = p6p.element_size()
-    nbytes = (p6p.numel() + n_p + b * n_p + b * k + b * steps * kp) * e
+    nbytes = (6 * n_p * k + n_p + b * n_p + b * k + b * steps * k) * e
     scalars = 12 * n_p * k
     per_eval = scalars + 18 * n_p * k + gram_ops(2 * n_p, k)
     cg_ops = iters * (2 * k * k + 10 * k)
@@ -1057,7 +1182,7 @@ def phase_traj_kernel(card, ctx):
                       f"traj kernel its {its.tolist()} vs plain "
                       f"{want.its.tolist()}")
             ms = cuda_ms(lambda: cg.gn_traj_cuda(*args), calls=1)
-            bound_ms, bound_by = traj_bound(p6p, k, TRAJ_STEPS, b,
+            bound_ms, bound_by = traj_bound(p6p, wgt_p, k, TRAJ_STEPS, b,
                                             int(its.sum()),
                                             int(evals.sum()))
             print(f"[traj-kernel] {ROM_N}x{ROM_N} mesh layout "
@@ -1253,7 +1378,8 @@ def main():
 
     def entry(name, source, replaces, n_launches, main, extra):
         """A kernel's line: the main-path numbers in f32, the others
-        under suffixed keys. None of the seven is one PyTorch call, so
+        under suffixed keys (B4 and B5 add ms_device, a call's time in a
+        CUDA graph). None of the seven is one PyTorch call, so
         library_ms is null (PERF.md)."""
         e = {"name": name, "route": "cuda",
              "source": f"finitedifference_tpu_torch/csrc/{source}",
@@ -1261,7 +1387,8 @@ def main():
              "launches": n_launches, "library_ms": None}
         e.update({key: main[key] for key in ("max_abs_err", "ms",
                                              "plain_ms", "bound_ms",
-                                             "bound_by")})
+                                             "bound_by", "ms_device")
+                  if key in main})
         for suffix, numbers in extra.items():
             e.update({f"{key}_{suffix}": v for key, v in numbers.items()})
         return e

@@ -515,6 +515,8 @@ def compute_ecsw_weights(C, grid: Grid2D, bc_w: float = 50.0,
                          method: str = "nnls",
                          rel_err_thresh: float = 0.0,
                          max_support: Optional[int] = None,
+                         ecm_tolerance: float = 1e-2,
+                         ecm_rank: Optional[int] = None,
                          ring: str = "full",
                          verbose: bool = False) -> np.ndarray:
     """Full-grid ECSW weight field from a training matrix C (rows, n_cells).
@@ -527,7 +529,8 @@ def compute_ecsw_weights(C, grid: Grid2D, bc_w: float = 50.0,
     method: "nnls" (Lawson-Hanson on the Gram Cholesky, `nnls_gram`),
     "nnls_lstsq" (the fresh-lstsq variant, `nnls`) or "scipy_nnls".
     "ecm" raises NotImplementedError: empirical cubature is not ported
-    yet (ROADMAP Queue A, item 9).
+    yet (ROADMAP Queue A, item 2); its keywords `ecm_tolerance` and
+    `ecm_rank` sit where the JAX package has them, so its calls bind.
     """
     if isinstance(C, torch.Tensor):
         C = C.detach().cpu().numpy()
@@ -551,7 +554,7 @@ def compute_ecsw_weights(C, grid: Grid2D, bc_w: float = 50.0,
     elif method == "ecm":
         raise NotImplementedError(
             "method='ecm' (empirical cubature) is not ported yet: "
-            "ROADMAP Queue A, item 9 (the rest of ecsw.py)")
+            "ROADMAP Queue A, item 2 (the rest of ecsw.py)")
     else:
         raise ValueError(f"unknown weight method: {method}")
 

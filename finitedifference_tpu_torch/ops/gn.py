@@ -15,7 +15,8 @@ mode axis to kp = round_up(k + 1, 128) with zero basis columns, and the
 weighted residual rides in lane k.
 
 `gn_system` / `gn_step` run the kernels of csrc/gn_sampled.cu
-(ops/cuda_gn.py) on CUDA tensors and the plain PyTorch versions
+(ops/cuda_gn.py; one launch a call, its scratch in a `sampled_workspace`
+that a run makes once) on CUDA tensors and the plain PyTorch versions
 `gn_system_ref` / `gn_step_ref` on CPU tensors; `trajectory_hprom` runs a
 whole HPROM trajectory, batched over μ, in one launch of the kernel of
 csrc/gn_traj.cu, or its plain version `trajectory_hprom_ref`. Any other
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.ops.cuda_gn import (
     TRAJ_CELLS,
+    SampledWorkspace,
     gn_step_cuda,
     gn_system_cuda,
     gn_traj_cuda,
@@ -199,29 +201,41 @@ def trajectory_hprom(p6p, y0, slbc_p, wgt_p, k: int, hdx: float, hdy: float,
                                 num_steps, **kw)
 
 
+def sampled_workspace(p6p, k: int) -> SampledWorkspace:
+    """The scratch of gn_system / gn_step for systems of p6p's shape and
+    k modes, to make once per run and pass to every call (on a CPU
+    device it holds nothing). It serves one stream at a time."""
+    _, n_p, kp = p6p.shape
+    return SampledWorkspace(n_p, kp, k, p6p.dtype, p6p.device)
+
+
 def gn_system(p6p, y, cp, wgt_p, k: int, hdx: float, hdy: float, *,
-              tile: int = 256):
+              tile: int = 256, workspace: SampledWorkspace | None = None):
     """One weighted Gauss-Newton system evaluation.
 
     p6p:  (6, n_p, kp) padded blocks (pad_factored_inputs)
     y:    (k,) reduced coords, p6p's dtype
     cp:   (n_p, 2) per-step residual constants [cp_u, cp_v]
     wgt_p:(n_p, 1) padded ECSW weights
-    Returns gext (kp, kp). `tile` sets the plain version's partial-Gram
-    tiles; the kernel picks its own.
+    Returns gext (kp, kp), a new tensor each call. `tile` sets the plain
+    version's partial-Gram tiles; the kernel picks its own.
+    `workspace` (sampled_workspace) is the kernel's scratch; without one
+    the call makes its own.
     """
     _check_device(p6p)
     if p6p.is_cuda:
-        return gn_system_cuda(p6p, y, cp, wgt_p, k, hdx, hdy)
+        return gn_system_cuda(p6p, y, cp, wgt_p, k, hdx, hdy,
+                              workspace=workspace)
     return gn_system_ref(p6p, y, cp, wgt_p, k, hdx, hdy, tile)
 
 
 def gn_step(p6p, y, cp, wgt_p, k: int, hdx: float, hdy: float, *,
-            tile: int = 256, solve_iters: int = 24):
+            tile: int = 256, solve_iters: int = 24,
+            workspace: SampledWorkspace | None = None):
     """One fused Gauss-Newton iteration: the system and its masked CG
-    solve. Returns (dy (k,), rn 0-dim)."""
+    solve. Returns (dy (k,), rn 0-dim), new tensors each call."""
     _check_device(p6p)
     if p6p.is_cuda:
         return gn_step_cuda(p6p, y, cp, wgt_p, k, hdx, hdy,
-                            solve_iters=solve_iters)
+                            solve_iters=solve_iters, workspace=workspace)
     return gn_step_ref(p6p, y, cp, wgt_p, k, hdx, hdy, tile, solve_iters)

@@ -45,6 +45,7 @@ from finitedifference_tpu_torch.ops.gn import (
     gn_step,
     gn_system,
     pad_factored_inputs,
+    sampled_workspace,
     trajectory_hprom,
 )
 from finitedifference_tpu_torch.ops.gn_full import (
@@ -290,7 +291,10 @@ def pallas_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
     ls_method "normal" (Cholesky) or "cg" solve the reduced system after
     the call; "fused" folds the CG into the call (ops/gn.gn_step), so an
     iteration is one kernel call and no other work. `tile` is the padding
-    tile of p6p (the plain version's partial-Gram tiles).
+    tile of p6p (the plain version's partial-Gram tiles). The run makes
+    one kernel workspace and passes it to every call, so no call
+    allocates scratch; each call's outputs are new tensors (the loop
+    keeps the previous call's rn).
     ROMResult.gn_evals counts the kernel calls.
     """
     dtype, device = p6p.dtype, p6p.device
@@ -307,6 +311,7 @@ def pallas_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
     fl = _HalfFlux(hdx, hdy, src_lbc)
     wgt = wgt_p[:, 0]
     solve_ls = _reduced_solver(ls_method)
+    ws = sampled_workspace(p6p, k)
 
     def scalars(y):
         y_pad = torch.zeros(kp, dtype=dtype, device=device)
@@ -323,8 +328,9 @@ def pallas_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
         def system(y):
             if ls_method == "fused":
                 return gn_step(p6p, y, cp, wgt_p, k, hdx, hdy, tile=tile,
-                               solve_iters=CG_ITERS)
-            gext = gn_system(p6p, y, cp, wgt_p, k, hdx, hdy, tile=tile)
+                               solve_iters=CG_ITERS, workspace=ws)
+            gext = gn_system(p6p, y, cp, wgt_p, k, hdx, hdy, tile=tile,
+                             workspace=ws)
             return solve_ls(gext[:k, :k], -gext[:k, k]), \
                 torch.sqrt(gext[k, k])
 

@@ -86,7 +86,8 @@ def load_or_compute_snaps(mu, grid: Grid2D, w0, dt, num_steps,
           f"{time.time() - t0:.3e} s ({int(res.total_newton_its)} Newton its)")
     if res.max_final_relnorm is not None:
         worst = float(res.max_final_relnorm)
-        cutoff = 1e-12 if w0.dtype == torch.float64 else 1e-6
+        # keyed on the stored snapshots' dtype, as the JAX package does
+        cutoff = 1e-12 if snaps.dtype == np.float64 else 1e-6
         if worst > cutoff:
             print(f"WARNING: some Newton step exited unconverged "
                   f"(worst final relative residual {worst:.2e} > {cutoff:g})")

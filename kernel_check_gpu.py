@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Quick check and timing of the redesigned kernels B1, B3, B6 and B7 on
-one NVIDIA GPU, for work on their sources (a minute or two each, where
+"""Quick check and timing of the redesigned kernels B1, B3, B4, B5, B6 and
+B7 on one NVIDIA GPU, for work on their sources (a minute or two each, where
 chip_smoke.py takes six).
 
-    python3 kernel_check_gpu.py [b1|b3|b6|b7|b6phases|b6variants|b7variants|all]
+    python3 kernel_check_gpu.py [b1|b3|b6|b7|b45|b6phases|b6variants|
+                                 b7variants|b45variants|all]
     python3 kernel_check_gpu.py times OUT.pt
     python3 kernel_check_gpu.py diff A.pt B.pt
 
@@ -21,7 +22,10 @@ whole-trajectory kernel against its plain version on the bench mesh
 layout and on ragged ones (k = 150, k = 60, k = 127; chunks that do not
 divide among the cluster's CTAs), f32 and f64: error, equal GN counts in
 f64, two runs and b = 1 bit-equal to its row of b = 9; then its time for
-1 and 9 points. b7: the segment solve against its plain version on
+1 and 9 points. b45: the sampled system (B4) and step (B5) against their
+plain versions on SAMPLED_CASES, f32 and f64, two runs bit-equal; then
+at the bench mesh layout their eager and device (CUDA graph) times and
+device kernels a call. b7: the segment solve against its plain version on
 chip_smoke.SEG_LAYOUTS, then its time at 750^2 beside B1's. b6phases,
 b6variants and b7variants time throw-away builds of the two kernels, each
 with one phase left out or one constant changed (B6_PHASES at clusters of
@@ -67,8 +71,8 @@ def report_build():
     _build.load_library()
     text = path.with_suffix(".ptxas.txt").read_text()
     pattern = (r"Compiling entry function '(\S*(?:full_system|traj_kernel|"
-               r"wavefront_exact|wavefront_seg)\S*)'.*?\n.*?\n(.*?Used.*?)"
-               r"\n")
+               r"sampled_kernel|wavefront_exact|wavefront_seg)\S*)'.*?\n.*?"
+               r"\n(.*?Used.*?)\n")
     for m in re.finditer(pattern, text, re.S):
         print(f"[build] ...{m.group(1)[-40:]}: {m.group(2).strip()[-120:]}")
 
@@ -333,6 +337,7 @@ def build_variant(name, source, text):
     _build.CSRC_DIR = csrc
     _build.load_library.cache_clear()
     cg._traj_kernel.cache_clear()
+    cg._kernel.cache_clear()
     cw._kernel.cache_clear()
     _build.build()
 
@@ -424,11 +429,141 @@ def check_b7():
               f"{str(dtype)[6:]}: {ms:.4f} ms (B1 {b1:.4f} ms)", flush=True)
 
 
+# B4/B5 layouts (n_s, k, tile): tiny, the bench mesh, 150 modes, a short
+# last chunk over uneven CTAs, CTAs with several chunks, the tiles in two
+# and three parts (the step's CG Gram spread over the cluster)
+SAMPLED_CASES = [(40, 6, 8), (1508, 95, 256), (700, 150, 256),
+                 (1000, 150, 8), (2600, 40, 8), (600, 200, 8),
+                 (400, 255, 8)]
+
+
+def sampled_args(n_s, k, tile, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p6 = torch.randn((6, n_s, k), generator=gen, dtype=dtype,
+                     device="cuda") / k ** 0.5
+    wgt = 1 + torch.rand(n_s, generator=gen, dtype=dtype, device="cuda")
+    p6p, wgt_p = gn.pad_factored_inputs(p6, wgt, tile=tile, dtype=dtype)
+    y = torch.randn(k, generator=gen, dtype=dtype, device="cuda")
+    cp = 0.1 * torch.randn((p6p.shape[1], 2), generator=gen, dtype=dtype,
+                           device="cuda")
+    return p6p, y, cp, wgt_p, k, 0.5 * DT, 0.25 * DT
+
+
+def sampled_fns(args):
+    """B4 and B5 on args, with one workspace for all calls where the
+    checkout has one (an older checkout's wrappers make their scratch)."""
+    kw = {"workspace": gn.sampled_workspace(args[0], args[4])} \
+        if hasattr(gn, "sampled_workspace") else {}
+    return {"B4": lambda: (gn.gn_system(*args, **kw),),
+            "B5": lambda: gn.gn_step(*args, **kw)}
+
+
+def time_b45(tag, count=True):
+    """B4 and B5 at the bench mesh layout, f32 and f64: eager and device
+    ms a call, and (with `count`) the device kernels a call."""
+    for dtype in (F32, F64):
+        args = cs.sampled_system_inputs(dtype, seed=1)
+        fns = sampled_fns(args)
+        per_call = cs.device_kernels_per_call(fns) if count else {}
+        for name, fn in fns.items():
+            eager = cs.cuda_ms(fn, calls=50)
+            device = cs.graph_ms(fn, calls=50)
+            kernels = per_call[name] if count else "not counted"
+            print(f"[{tag}] {name} 250x250 bench layout "
+                  f"{tuple(args[0].shape)} {str(dtype)[6:]}: eager "
+                  f"{eager:.4f} ms, device {device:.4f} ms, device kernels "
+                  f"a call: {kernels}", flush=True)
+
+
+def check_b45():
+    for n_s, k, tile in SAMPLED_CASES:
+        for dtype in (F32, F64):
+            args = sampled_args(n_s, k, tile, dtype)
+            fns = sampled_fns(args)
+            got = [fns["B4"](), fns["B5"]()]
+            again = [fns["B4"](), fns["B5"]()]
+            want = [(gn.gn_system_ref(*args, tile),),
+                    gn.gn_step_ref(*args, tile)]
+            torch.cuda.synchronize()
+            rel4 = cs.rel_err(got[0][0], want[0][0])
+            rel5 = max(cs.rel_err(g, w) for g, w in zip(got[1], want[1]))
+            same = all(torch.equal(a, b) for x, y in zip(got, again)
+                       for a, b in zip(x, y))
+            print(f"[b45] ({n_s}, {k}, {tile}) {str(dtype)[6:]}: B4 rel "
+                  f"{rel4:.3e}, B5 rel {rel5:.3e}, two runs "
+                  f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+            cs.check(rel4 <= cs.GN_TOL[dtype] and rel5 <= 100 *
+                     cs.GN_TOL[dtype] and same, f"B4/B5 ({n_s}, {k}, "
+                     f"{tile}) {dtype}")
+    time_b45("b45")
+
+
+# B4/B5 variants, each a throw-away build: (what changes, [(old, new)] in
+# csrc/gn_sampled.cu)
+B45_VARIANTS = [
+    ("nothing", []),
+    ("CG in 2 warps", [("constexpr int kCgWarps = 4;",
+                        "constexpr int kCgWarps = 2;")]),
+    ("no CG iterations", [("for (int it = 0; it < iters; ++it) {",
+                           "for (int it = 0; it < 0; ++it) {")]),
+    ("CG without the product", [
+        ("for (int j = j0; j < j1; ++j) {",
+         "for (int j = j0; j < j0; ++j) {")]),
+    ("CG without warp sums", [
+        ("dw = warp_sum(dw);", ""),
+        ("const T rs_new = warp_sum(rr);", "const T rs_new = rr;")]),
+    ("CG without divisions", [
+        ("const T alpha = live ? rs / denom : T(0);",
+         "const T alpha = live ? rs * denom : T(0);"),
+        ("const T beta = live ? rs_new / rs : T(0);",
+         "const T beta = live ? rs_new * rs : T(0);")]),
+    ("no bulk copies", [
+        ("barrier_expect(bar_addr, 6 * valid * row_bytes)",
+         "barrier_expect(bar_addr, 0)"),
+        ("for (int e = tid; e < 6 * valid; e += nthreads) {",
+         "for (int e = tid; e < 0; e += nthreads) {")]),
+    ("no scalars and rows", [
+        ("for (int cc = tid / kTeam; cc < cells;",
+         "for (int cc = tid / kTeam; cc < 0;"),
+        ("for (int e = tid; e < cells * pieces; e += nthreads) {",
+         "for (int e = tid; e < 0; e += nthreads) {")]),
+    ("no products", [("for (int r = group; r < 2 * cells; r += n_groups)",
+                      "for (int r = group; r < 0; r += n_groups)")]),
+    ("no tiles into the partial", [
+        ("  if (has) {\n    double* o = part + my_t;",
+         "  if (false) {\n    double* o = part + my_t;")]),
+    ("no reduce-scatter", [
+        ("for (int e = 2 * tid; e < slice; e += 2 * nthreads) {\n"
+         "    double2 v[kCluster];",
+         "for (int e = 2 * tid; e < 0; e += 2 * nthreads) {\n"
+         "    double2 v[kCluster];")]),
+    ("no sum over the clusters", [
+        ("        if (c < n_clusters) {\n          v[c] = __ldcg(",
+         "        if (false) {\n          v[c] = __ldcg(")]),
+]
+
+
+def check_b45_variants(only=()):
+    """B4's and B5's times in each of B45_VARIANTS (those whose name holds
+    one of `only`, if given)."""
+    text = (BASE_CSRC / "gn_sampled.cu").read_text()
+    for i, (what, edits) in enumerate(B45_VARIANTS):
+        if only and not any(o in what for o in only):
+            continue
+        build_variant(f"b45_{i}", "gn_sampled.cu",
+                      edited(text, edits, f"B4/B5 variant {what}"))
+        time_b45(f"b45-variants] [{what}", count=False)
+    _build.CSRC_DIR = BASE_CSRC
+
+
 # the cases `times` saves: (kernel, nx, ny, n_seg, overlap) for B1 and
 # B7, the main path's layouts, one segment (B1's solve) and four above
 # 768 rows (ny_pad 1024, 1152, 2048, 2176); (kernel, points) for B6 at
 # the bench mesh layout
-COMPARE_CASES = [("B1", 750, 750, 1, 0), ("B7", 750, 750, 1, 0),
+COMPARE_CASES = [("B3", 750), ("B3", 250), ("B4", 1508, 95, 256),
+                 ("B5", 1508, 95, 256), ("B4", 1000, 150, 8),
+                 ("B5", 1000, 150, 8),
+                 ("B1", 750, 750, 1, 0), ("B7", 750, 750, 1, 0),
                  ("B7", 750, 750, 8, 64),
                  ("B7", 40, 1000, 4, 32), ("B7", 40, 1100, 4, 32),
                  ("B7", 20, 2000, 16, 8), ("B7", 20, 2100, 16, 8),
@@ -441,7 +576,21 @@ def times(out):
     saved = {}
     for case in COMPARE_CASES:
         for dtype in (F32, F64):
-            if case[0] == "B6":
+            device = None
+            if case[0] == "B3":
+                args = cs.full_system_inputs(case[1], dtype, seed=case[1])
+
+                def fn(args=args):
+                    return (gf.gn_full_system(*args),)
+                calls = 20
+                key = f"B3 {case[1]}x{case[1]} 95 modes"
+            elif case[0] in ("B4", "B5"):
+                args = sampled_args(*case[1:], dtype, seed=1)
+                fn = sampled_fns(args)[case[0]]
+                calls = 50
+                device = cs.graph_ms(fn, calls=50)
+                key = f"{case[0]} ({', '.join(map(str, case[1:]))})"
+            elif case[0] == "B6":
                 full = cs.traj_inputs(250, 95, 1508, dtype, 9)
                 args = (full[0], full[1][:case[1]].contiguous(),
                         full[2][:case[1]].contiguous(), *full[3:],
@@ -473,7 +622,8 @@ def times(out):
             got = fn()
             ms = cs.cuda_ms(fn, calls=calls)
             saved[key] = [g.cpu() for g in got]
-            print(f"[times] {key}: {ms:.4f} ms", flush=True)
+            extra = "" if device is None else f", device {device:.4f} ms"
+            print(f"[times] {key}: {ms:.4f} ms{extra}", flush=True)
     for dtype in ("float32", "float64"):
         b1, b7 = (saved[f"{kernel} 750x750 layout 1536x768 n_seg 1 overlap "
                         f"0 {dtype}"] for kernel in ("B1", "B7"))
@@ -502,14 +652,14 @@ def diff(a, b):
 
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    modes = ("b1", "b3", "b6", "b6phases", "b6variants", "b7", "b7variants",
-             "all")
+    modes = ("b1", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
+             "b7variants", "b45variants", "all")
     if what == "diff":
         diff(sys.argv[2], sys.argv[3])
         return
     cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
-             "[b1|b3|b6|b6phases|b6variants|b7|b7variants|all] | times "
-             "OUT.pt | diff A.pt B.pt")
+             "[b1|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
+             "all] | times OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -525,6 +675,10 @@ def main():
         check_b3()
     if what in ("b1", "all"):
         check_b1()
+    if what in ("b45", "all"):
+        check_b45()
+    if what == "b45variants":
+        check_b45_variants(sys.argv[2:])
     if what in ("b6", "all"):
         check_b6()
     if what == "b6phases":

@@ -121,29 +121,95 @@ def test_gn_full_kernel_matches_plain(cuda, shape, dtype):
         assert geo.n_chunks % geo.n_ctas and geo.lanes != k + 1
 
 
+SAMPLED_CASES = [(40, 6, 8), (1508, 95, 256), (700, 150, 256),
+                 (1000, 150, 8), (2600, 40, 8), (600, 200, 8),
+                 (400, 255, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [F32, F64])
-@pytest.mark.parametrize("n_s,k,tile", [(40, 6, 8), (1508, 95, 256),
-                                        (700, 150, 256)])
+@pytest.mark.parametrize("n_s,k,tile", SAMPLED_CASES)
 def test_gn_sampled_kernels_match_plain(cuda, n_s, k, tile, dtype):
-    """B4 (the system) and B5 (system + masked CG) over many CTAs,
-    k = 150 included (kp = 256)."""
+    """B4 (the system) and B5 (system + masked CG), one launch each, over
+    many clusters: k = 150 included (kp = 256); at (1000, 150, 8) the last
+    chunk is short and the 63 chunks do not divide among the clusters'
+    CTAs; at (2600, 40, 8) the CTAs take more than one chunk; at 200
+    and 255 modes (kp = 256) the tiles go in two and three parts, and
+    the step's CG Gram spreads over the last cluster (both types at 255,
+    float64 at 200). Two runs are bit-equal, with and without a
+    workspace, and the kernel's own geometry is sampled_geometry's."""
     p6p, y, cp, wgt_p, k = sampled_inputs(n_s, k, dtype, cuda, tile)
     hd = (0.5 * DT, 0.25 * DT)
+    ws = gn.sampled_workspace(p6p, k)
     s0, t0 = cg.SYSTEM_LAUNCHES, cg.STEP_LAUNCHES
-    got = gn.gn_system(p6p, y, cp, wgt_p, k, *hd, tile=tile)
-    dy, rn = gn.gn_step(p6p, y, cp, wgt_p, k, *hd, tile=tile)
+    got = gn.gn_system(p6p, y, cp, wgt_p, k, *hd, tile=tile, workspace=ws)
+    dy, rn = gn.gn_step(p6p, y, cp, wgt_p, k, *hd, tile=tile, workspace=ws)
     assert (cg.SYSTEM_LAUNCHES, cg.STEP_LAUNCHES) == (s0 + 1, t0 + 1)
+    again = gn.gn_system(p6p, y, cp, wgt_p, k, *hd, tile=tile)
+    dy2, rn2 = gn.gn_step(p6p, y, cp, wgt_p, k, *hd, tile=tile,
+                          workspace=ws)
     want = gn.gn_system_ref(p6p, y, cp, wgt_p, k, *hd, tile)
     wdy, wrn = gn.gn_step_ref(p6p, y, cp, wgt_p, k, *hd, tile)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert rel(got, want) <= TOL[dtype]
-    assert bool((got[k + 1:] == 0).all())
+    assert bool((got[k + 1:] == 0).all()) and bool((got[:, k + 1:] == 0)
+                                                   .all())
     assert dy.shape == (k,) and rn.dim() == 0
     # the CG amplifies the Gram's rounding by its condition number
     assert rel(dy, wdy) <= 100 * TOL[dtype]
     assert rel(rn, wrn) <= TOL[dtype]
+    assert torch.equal(got, again)
+    assert torch.equal(dy, dy2) and torch.equal(rn, rn2)
+    assert int(ws.counter.item()) == 0
+    n_p, e = p6p.shape[1], p6p.element_size()
+    geo = cg.sampled_geometry(n_p, k, e)
+    for step in (False, True):
+        kgeo = cg.kernel_geometry(n_p, k, e, step)
+        assert kgeo.fits and kgeo.smem <= 232448
+        assert kgeo[1:10] == (geo.lanes, geo.n_tiles, geo.n_parts,
+                              geo.part_tiles, geo.group, geo.threads,
+                              geo.cells, geo.n_chunks, geo.n_clusters)
+        assert kgeo.ws_len == geo.workspace_len()
+    if (n_s, tile) == (1000, 8):
+        assert n_p % geo.cells and \
+            geo.n_chunks % (geo.n_clusters * geo.cluster)
+    if k >= 200:
+        assert geo.n_parts == (2 if k == 200 else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("kind", ["system", "step"])
+def test_gn_sampled_graph_replays_equal_eager(cuda, kind, dtype):
+    """One gn_system or gn_step call with a workspace, captured in a CUDA
+    graph and replayed three times, gives the eager call's bits: the
+    kernel leaves its ticket counter at 0, syncs nothing and allocates
+    nothing outside the graph's pool."""
+    p6p, y, cp, wgt_p, k = sampled_inputs(1508, 95, dtype, cuda, 256)
+    hd = (0.5 * DT, 0.25 * DT)
+    ws = gn.sampled_workspace(p6p, k)
+
+    def call():
+        if kind == "system":
+            return (gn.gn_system(p6p, y, cp, wgt_p, k, *hd, workspace=ws),)
+        return gn.gn_step(p6p, y, cp, wgt_p, k, *hd, workspace=ws)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [x.clone() for x in call()]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        for x in captured:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    assert int(ws.counter.item()) == 0
 
 
 @pytest.mark.cuda
@@ -211,8 +277,9 @@ def test_pallas_prom_on_card_matches_cpu(cuda, dtype):
                          ids=["normal", "unroll3_cg", "unroll3_fused",
                               "fused"])
 def test_pallas_hprom_on_card_matches_cpu(cuda, kw):
-    """The sampled engine on the card (B4, or B5 when fused) against its
-    CPU run in f64: within 1e-12, equal counts, one launch per call."""
+    """The sampled engine on the card (B4, or B5 when fused, one shared
+    workspace a run) against its CPU run in f64: within 1e-12, equal
+    counts, one launch per call."""
     runs = {}
     for dev in ("cpu", cuda):
         grid, basis, y0, mesh, sw, ba = small_rom(dev, F64)

@@ -236,6 +236,22 @@ def test_ecm_not_ported_yet(training):
         tecsw.compute_ecsw_weights(training[-1], training[1], method="lars")
 
 
+def test_ecm_keywords_bind_as_in_jax(training):
+    """The JAX signature's ECM keywords sit before `ring`: a keyword call
+    with them reaches the documented NotImplementedError, and a call that
+    spells out every argument up to `ring` by position gives JAX's
+    weights."""
+    jg, tg, *_, c = training
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tecsw.compute_ecsw_weights(c, tg, method="ecm", ecm_tolerance=1e-3,
+                                   ecm_rank=4)
+    args = (5.0, "nnls", 1e-4, None, 1e-2, None, "inflow")
+    want = jecsw.compute_ecsw_weights(c, jg, *args)
+    got = tecsw.compute_ecsw_weights(to_torch(c), tg, *args)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 5.0 and got[1] != 5.0   # the inflow ring only
+
+
 def test_offline_to_online_matches_jax(training):
     """Training matrix, NNLS weights, prepare_hprom, HPROM at the unseen
     mu: the port's chain against JAX's, and both near the FOM."""

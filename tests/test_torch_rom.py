@@ -243,6 +243,44 @@ def test_collect_snapshots_and_missing(tmp_path, monkeypatch):
                                 snap_folder=folder, allow_missing=True)
 
 
+class _Unconverged:
+    """What a stepper returns: f32 snapshots and a worst final Newton
+    residual, for the convergence warning."""
+
+    def __init__(self, snaps, worst):
+        self.snaps, self.max_final_relnorm = snaps, worst
+        self.total_newton_its = 3
+
+
+@pytest.mark.parametrize("worst,warns", [(1e-9, False), (1e-5, True)])
+def test_convergence_warning_keyed_on_stored_dtype(tmp_path, monkeypatch,
+                                                   capsys, worst, warns):
+    """With an f64 w0 and f32 snapshots (the runners' setting) both
+    packages warn above the f32 cutoff 1e-6, never at 1e-9: the cutoff
+    follows the stored snapshots' dtype, not the Newton dtype."""
+    import finitedifference_tpu.fom as jfom
+    import finitedifference_tpu_torch.fom as tfom
+
+    jg = JGrid2D(nx=6, ny=6, x_up=100.0, y_up=100.0)
+    tg = grid_from_jax(jg)
+    snaps = np.ones((jg.state_dim, 3), dtype=np.float32)
+    for mod, arr in ((jfom, jnp.asarray(snaps)), (tfom, torch.from_numpy(
+            snaps))):
+        for name in ("inviscid_burgers_implicit2d",
+                     "inviscid_burgers_implicit2d_skewed"):
+            monkeypatch.setattr(mod, name, lambda *a, _arr=arr, **kw:
+                                _Unconverged(_arr, worst))
+    w0 = np.ones(jg.state_dim)
+    for i, (load, grid, w) in enumerate((
+            (tsnap.load_or_compute_snaps, tg, to_torch(w0)),
+            (jsnap.load_or_compute_snaps, jg, w0))):
+        got = load(MU, grid, w, DT, 2, snap_folder=str(tmp_path / f"s{i}"),
+                   snaps_dtype=np.float32)
+        assert got.dtype == np.float32
+        out = capsys.readouterr().out
+        assert ("unconverged" in out) == warns, out
+
+
 def test_error_metrics_match_jax():
     rng = np.random.default_rng(0)
     a = rng.normal(size=(10, 5)) + 5
