@@ -68,6 +68,23 @@ Phases, each printing its own lines:
    factored and pallas_traj (one launch for all 9 points) for 500 steps,
    each point held against its own run, and sweep_fom(engine="skewed",
    seg=8) for 100 steps: aggregate steps/s.
+16. [weights] the other weight methods at 64^2 on phase 10's training
+   matrix: compute_ecsw_weights(method="ecm") (rank-800 sketch on the
+   card, cubature on the host), multilevel_nnls_weights (FISTA screening
+   on the card), sequential_nnls_weights, and lawson_hanson_weights_device
+   on a float32 training matrix built on the card: N_e, the training
+   residual (each must reach 1e-4) and the time;
+17. [runners] the users' workflow through the runner main()s at 250^2 and
+   the runners' defaults in a fresh temporary directory: run_fom at (5.19,
+   0.026), run_prom --engine generic (building the 9-trajectory basis)
+   then pallas, run_hprom --compute-ecsw --weights-method nnls --engine
+   generic then pallas (on the saved weights), run_sweep --model hprom
+   over the 3x3 grid: wall time, steps/s, Newton / GN iterations, N_e, the
+   weight solve time and the error against the FOM beside the JAX
+   package's records; B1 launched in run_fom and the basis build, B3 in
+   run_prom pallas, B4 in run_hprom pallas; the PROM error under 2%, the
+   HPROM's under 3%, each kernel engine within ENGINE_TOL of its generic
+   engine.
 Each main path runs with the kernels' counts set to 0 just before it and
 read just after; it fails if a kernel of the path was not launched.
 
@@ -79,9 +96,16 @@ non-zero; without a CUDA device the script fails at once and prints no
 result.
 """
 
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +117,11 @@ from finitedifference_tpu_torch.config import BurgersConfig
 from finitedifference_tpu_torch.ecsw import (
     compute_ecsw_weights,
     ecsw_training_matrix,
+    ecsw_training_matrix_device,
+    interior_mask,
+    lawson_hanson_weights_device,
+    multilevel_nnls_weights,
+    sequential_nnls_weights,
 )
 from finitedifference_tpu_torch.fom import (
     inviscid_burgers_implicit2d_skewed,
@@ -150,6 +179,21 @@ TRAJ_STEPS = 50
 SWEEP_MUS = [(m1, m2) for m1 in (4.4, 4.9, 5.4) for m2 in (0.016, 0.022,
                                                            0.028)]
 SWEEP_FOM_STEPS = 100
+
+# the users' workflow through the runners (README): 250^2, the runners'
+# defaults, at the first canonical test point; the JAX package's records
+# there, from runs on a TPU v5e (RESULTS.md:125-126,171), printed beside
+# the port's numbers, and the limits the port's errors must stay under
+RUNNER_N = 250
+RUNNER_STEPS = 500
+RUNNER_MU = (5.19, 0.026)
+RUNNER_ROM_FILE = "rom_snaps_mu1_5.19_mu2_0.026.npy"
+RUNNER_HPROM_FILE = "hprom_snaps_mu1_5.19_mu2_0.026.npy"
+JAX_RECORD = {"prom": 1.02, "hprom": 1.20, "n_e": 2016}
+PROM_LIMIT = 2.0           # percent
+HPROM_LIMIT = 3.0
+# every weight method's stopping target at 64^2: the recipe's 1e-4
+WEIGHT_TARGET = 1e-4
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM, and
 # FP32 / FP64 outside the tensor cores
@@ -869,7 +913,8 @@ def phase_fine_prom(card, launches):
 def phase_ecsw_recipe(card, launches):
     """The HPROM offline recipe end to end at 64^2 (f64): training
     matrix on the card, host NNLS, the HPROM on the card and on the
-    CPU."""
+    CPU. Returns the grid, basis, snapshot pairs and training matrix for
+    the weight-method phase."""
     grid = Grid2D(nx=RECIPE_N, ny=RECIPE_N)
     w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
     snaps = inviscid_burgers_implicit2d_skewed(grid, w0, DT, ROM_STEPS,
@@ -931,6 +976,7 @@ def phase_ecsw_recipe(card, launches):
     diff = rel_err(k_card.red_coords, g_card.red_coords)
     check(diff < 1e-10, f"recipe pallas_hprom vs ecsw_hprom: rel {diff}")
     print(f"[ecsw] pallas_hprom vs ecsw_hprom on the card: rel {diff:.3e}")
+    return grid, basis, pairs, c
 
 
 # ----------------------------------------------------------------------
@@ -1353,6 +1399,240 @@ def phase_sweep(card, ctx, gn_launches):
     return launches
 
 
+# ----------------------------------------------------------------------
+# the users' workflow: the runner CLIs, and the other weight methods
+# ----------------------------------------------------------------------
+
+class _Tee(io.TextIOBase):
+    """stdout that is also kept: the runners' protocol lines are read back
+    (Newton / GN iterations, N_e, the weight solve time)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _found(pattern, text, what):
+    hits = re.findall(pattern, text)
+    check(bool(hits), f"{what}: no line matching {pattern!r}")
+    return hits
+
+
+def run_runner(label, main, **kw):
+    """main(**kw) of a port runner with every kernel count set to 0 just
+    before and read just after: (return value, wall s, counts, stdout)."""
+    cw.LAUNCHES = 0
+    cw.SEG_LAUNCHES = 0
+    reset_gn_counts()
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        ret = main(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"wavefront_solve": cw.LAUNCHES, **gn_counts()}
+    check(cw.SEG_LAUNCHES == 0, f"{label}: segmented solves launched")
+    return ret, wall, counts, tee.buf.getvalue()
+
+
+def phase_runners(card, b1_launches, gn_launches):
+    """The users' offline-to-online workflow through the port's runner
+    main()s at 250^2 in a fresh working directory: run_fom, run_prom
+    (generic, building the 9-trajectory basis, then pallas), run_hprom
+    --compute-ecsw nnls (generic, then pallas on the saved weights) and
+    the 3x3 run_sweep --model hprom. Adds each run's kernel launches to
+    b1_launches (returned) and gn_launches."""
+    from finitedifference_tpu_torch.runners import (
+        run_fom,
+        run_hprom,
+        run_prom,
+        run_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="fd_runners_")
+    home = os.getcwd()
+    os.chdir(workdir)
+    steps, mu = RUNNER_STEPS, RUNNER_MU
+    common = dict(num_cells=RUNNER_N, num_steps=steps)
+    base = f"[runners] {RUNNER_N}x{RUNNER_N} {steps} steps"
+    tag = f"{base} at {mu}"
+    try:
+        (el, _), wall, counts, out = run_runner(
+            "run_fom", run_fom.main, mu1=mu[0], mu2=mu[1], **common)
+        its = int(_found(r"(\d+) Newton its\)", out, "run_fom")[-1])
+        check(counts["wavefront_solve"] == its > 0,
+              f"run_fom: {counts} launches for {its} Newton iterations")
+        b1_launches += counts["wavefront_solve"]
+        print(f"{tag} run_fom (skewed, f64): wall {wall:.2f} s, "
+              f"{steps / el:.2f} steps/s, {its} Newton its "
+              f"({its / steps:.2f}/step), {counts['wavefront_solve']} B1 "
+              f"launches ({card})")
+
+        proms = {}
+        for engine, kernel in (("generic", None), ("pallas", "gn_full")):
+            (el, err), wall, counts, out = run_runner(
+                f"run_prom {engine}", run_prom.main, mu1=mu[0], mu2=mu[1],
+                engine=engine, **common)
+            gn = int(_found(r"Total GN iterations: (\d+)", out,
+                            "run_prom")[-1])
+            proms[engine] = np.load(RUNNER_ROM_FILE)
+            line = (f"{tag} run_prom --engine {engine}: wall {wall:.2f} s, "
+                    f"{steps / el:.2f} steps/s, {gn} GN its "
+                    f"({gn / steps:.3f}/step), error vs FOM {err:.4f}% "
+                    f"(JAX on a TPU: {JAX_RECORD['prom']:.2f}%)")
+            if kernel is None:
+                foms = [float(t) for t in re.findall(
+                    r"Computed FOM snaps for .* in ([\d.e+-]+) s", out)]
+                pod_s = float(_found(r"POD \(rsvd, \d+ modes\): "
+                                     r"([\d.e+-]+) s", out, "basis")[-1])
+                check(len(foms) == 9 and counts["wavefront_solve"] > 0,
+                      f"basis build: {len(foms)} FOMs, "
+                      f"{counts['wavefront_solve']} B1 launches")
+                b1_launches += counts["wavefront_solve"]
+                line += (f"; the basis: 9 FOMs through B1 in "
+                         f"{sum(foms):.2f} s "
+                         f"({counts['wavefront_solve']} launches), "
+                         f"rSVD {pod_s:.2f} s")
+                check(counts["gn_full"] == 0, f"{engine}: {counts}")
+            else:
+                check(counts[kernel] > 0 and counts["wavefront_solve"] == 0,
+                      f"run_prom pallas: launches {counts}")
+                gn_launches[kernel] += counts[kernel]
+                diff = rel_err(torch.as_tensor(proms["pallas"]),
+                               torch.as_tensor(proms["generic"]))
+                check(diff < ENGINE_TOL, f"run_prom pallas vs generic: "
+                      f"rel {diff}")
+                line += (f", {counts[kernel]} B3 launches, rel vs generic "
+                         f"{diff:.3e}")
+            check(err < PROM_LIMIT, f"run_prom {engine}: error {err}% >= "
+                  f"{PROM_LIMIT}%")
+            print(line + f" ({card})")
+
+        hproms = {}
+        for engine, kernel in (("generic", None),
+                               ("pallas", "gn_sampled_system")):
+            (el, err), wall, counts, out = run_runner(
+                f"run_hprom {engine}", run_hprom.main, mu1=mu[0],
+                mu2=mu[1], compute_ecsw=engine == "generic",
+                weights_method="nnls", engine=engine, **common)
+            gn = int(_found(r"Total GN iterations: (\d+)", out,
+                            "run_hprom")[-1])
+            n_e = int(_found(r"N_e = (\d+)", out, "run_hprom")[-1])
+            hproms[engine] = np.load(RUNNER_HPROM_FILE)
+            line = (f"{tag} run_hprom --engine {engine}: wall {wall:.2f} s, "
+                    f"{steps / el:.2f} steps/s, {gn} GN its "
+                    f"({gn / steps:.3f}/step), N_e {n_e} (JAX: "
+                    f"{JAX_RECORD['n_e']}), error vs FOM {err:.4f}% (JAX "
+                    f"on a TPU: {JAX_RECORD['hprom']:.2f}%)")
+            if kernel is None:
+                solve_s = float(_found(r"weight solve time: ([\d.]+)s",
+                                       out, "run_hprom")[-1])
+                line += f", --compute-ecsw nnls weight solve {solve_s:.2f} s"
+                check(sum(counts.values()) == 0, f"{engine}: {counts}")
+            else:
+                check(counts[kernel] > 0 and sum(counts.values())
+                      == counts[kernel], f"run_hprom pallas: {counts}")
+                gn_launches[kernel] += counts[kernel]
+                diff = rel_err(torch.as_tensor(hproms["pallas"]),
+                               torch.as_tensor(hproms["generic"]))
+                check(diff < ENGINE_TOL, f"run_hprom pallas vs generic: "
+                      f"rel {diff}")
+                line += (f" (the weights saved by the generic run), "
+                         f"{counts[kernel]} B4 launches, rel vs generic "
+                         f"{diff:.3e}")
+            check(err < HPROM_LIMIT, f"run_hprom {engine}: error {err}% >= "
+                  f"{HPROM_LIMIT}%")
+            print(line + f" ({card})")
+
+        el, wall, counts, out = run_runner(
+            "run_sweep", run_sweep.main, model="hprom", **common)
+        errs = [float(e) for e in _found(
+            r"error vs the cached FOM ([\d.e+-]+)%", out, "run_sweep")]
+        check(len(errs) == 9 and max(errs) < HPROM_LIMIT,
+              f"run_sweep hprom: errors {errs}")
+        check(sum(counts.values()) == 0, f"run_sweep hprom: {counts}")
+        print(f"{base} run_sweep --model hprom 3x3 "
+              f"(the training points, generic engine, f32): wall "
+              f"{wall:.2f} s, {9 * steps / el:.2f} aggregate steps/s, "
+              f"error vs the cached FOM {min(errs):.4f}-{max(errs):.4f}% "
+              f"({card})")
+    finally:
+        os.chdir(home)
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[runners] phase {time.perf_counter() - t_phase:.1f} s")
+    return b1_launches
+
+
+def phase_weight_methods(card, grid, basis, pairs, c):
+    """The other weight methods at 64^2 on the recipe's training matrix
+    (on the card): ECM (rank-800 sketch on the card, cubature on the
+    host), multilevel (FISTA screening on the card), sequential (host)
+    and the device-scored Lawson-Hanson on a float32 training matrix
+    built on the card. Each must reach its stopping target, the 1e-4
+    training residual over its candidate cells."""
+    t_phase = time.perf_counter()
+
+    def residual(cmat, weights, ring):
+        flat = torch.as_tensor(interior_mask(grid, ring).ravel(),
+                               device=cmat.device)
+        ci = cmat[:, flat].double()
+        w = torch.as_tensor(weights, device=cmat.device)[flat]
+        d = ci.sum(dim=1)
+        return float(torch.linalg.vector_norm(ci @ w - d)
+                     / torch.linalg.vector_norm(d))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c32 = ecsw_training_matrix_device(grid, *pairs, basis, *MU_TRAIN, DT,
+                                      chunk=2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    diff = rel_err(c32, c)
+    check(diff < 1e-6, f"float32 device training matrix: rel {diff}")
+    methods = (
+        ("ecm (rank-800 sketch, tol 1e-4)", c, "full", lambda: (
+            compute_ecsw_weights(c, grid, bc_w=RING_WEIGHT, method="ecm",
+                                 rel_err_thresh=1e-4, ecm_rank=800,
+                                 ecm_tolerance=1e-4))),
+        ("multilevel (12 blocks, FISTA on the card)", c, "full", lambda: (
+            multilevel_nnls_weights(c, grid, num_subdomains=12,
+                                    bc_w=RING_WEIGHT, level1="fista",
+                                    rel_err_thresh=1e-4))),
+        ("sequential (host)", c, "full", lambda: (
+            sequential_nnls_weights(c, grid, bc_w=RING_WEIGHT,
+                                    rel_err_thresh=1e-4))),
+        ("lawson_hanson_weights_device (float32 C, inflow ring)", c32,
+         "inflow", lambda: lawson_hanson_weights_device(
+             c32, grid, bc_w=RING_WEIGHT, rel_err_thresh=1e-4)),
+    )
+    for label, cmat, ring, solve in methods:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights = solve()
+        elapsed = time.perf_counter() - t0
+        n_e = int((weights > 0).sum())
+        res = residual(cmat, weights, ring)
+        check(bool(np.all(weights >= 0)) and 0 < n_e < grid.n_cells,
+              f"{label}: N_e {n_e}")
+        check(res < WEIGHT_TARGET, f"{label}: training residual {res} >= "
+              f"{WEIGHT_TARGET}")
+        print(f"[weights] {grid.nx}x{grid.ny} {label}: N_e {n_e}, training "
+              f"residual {res:.3e} (target {WEIGHT_TARGET:g}), "
+              f"{elapsed:.2f} s ({card})")
+    print(f"[weights] float32 training matrix {tuple(c32.shape)} built in "
+          f"{build_s:.3f} s on the card (rel vs float64 {diff:.1e}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     card = phase_environment()
     phase_build()
@@ -1371,7 +1651,8 @@ def main():
     seg_launches += phase_sweep(card, ctx, gn_launches)
     del ctx
     phase_fine_prom(card, gn_launches)
-    phase_ecsw_recipe(card, gn_launches)
+    phase_weight_methods(card, *phase_ecsw_recipe(card, gn_launches))
+    launches = phase_runners(card, launches, gn_launches)
     check(seg_launches > 0, "the seg paths launched no segmented kernel")
     for k, v in gn_launches.items():
         check(v > 0, f"the ROM path launched no {k} kernel")

@@ -11,12 +11,16 @@ Ported so far:
 - the implicit full-order model: config, grid, ops/stencil,
   ops/wavefront, ops/skewed, ops/cuda_wavefront, fom;
 - the reduced models: precision, solvers, pod, snapshots, ops/sampled,
-  rom, ecsw (the NNLS recipe), rom_factored, rom_tensor, with the
+  rom, ecsw, rom_factored, rom_tensor, with the
   Gauss-Newton system kernels in ops/gn_full + ops/cuda_gn_full and
   ops/gn + ops/cuda_gn, and the whole-trajectory kernel
   (rom_factored.pallas_traj_hprom);
 - the μ sweeps: parallel/sweep (sweep_fom, sweep_lspg, sweep_hprom), with
   the segmented wavefront solve behind the FOM's `seg > 0`;
+- the users' workflow: the runner CLIs (runners/run_fom, run_prom,
+  run_hprom, run_sweep; `python -m finitedifference_tpu_torch.runners.X`),
+  the rest of ecsw (FISTA, ECM, the sequential, multilevel and
+  device-resident weight recipes) and utils (timers, profiling);
 - convert, which carries grids, layouts, meshes, padded inputs, arrays
   and results across from the JAX package.
 Entry points run on the CUDA device unless given CPU tensors or

@@ -230,21 +230,29 @@ def test_weights_equal_jax(training, method):
 
 
 def test_ecm_not_ported_yet(training):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tecsw.compute_ecsw_weights(training[-1], training[1], method="ecm")
+    """The name is historical: method="ecm" was not ported until the
+    runners' slice. Now it gives a nonnegative weight field with the
+    fixed ring weight; an unknown method still raises."""
+    tg, c = training[1], training[-1]
+    w = tecsw.compute_ecsw_weights(to_torch(c), tg, bc_w=5.0, method="ecm",
+                                   ecm_tolerance=1e-4)
+    ring = ~tecsw.interior_mask(tg).ravel()
+    assert np.all(w >= 0) and np.all(w[ring] == 5.0)
+    assert 0 < int((w[~ring] > 0).sum()) < int((~ring).sum())
     with pytest.raises(ValueError):
-        tecsw.compute_ecsw_weights(training[-1], training[1], method="lars")
+        tecsw.compute_ecsw_weights(c, tg, method="lars")
 
 
 def test_ecm_keywords_bind_as_in_jax(training):
     """The JAX signature's ECM keywords sit before `ring`: a keyword call
-    with them reaches the documented NotImplementedError, and a call that
-    spells out every argument up to `ring` by position gives JAX's
-    weights."""
+    with them runs ECM on a rank-4 sketch, and a call that spells out
+    every argument up to `ring` by position gives JAX's weights."""
     jg, tg, *_, c = training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tecsw.compute_ecsw_weights(c, tg, method="ecm", ecm_tolerance=1e-3,
-                                   ecm_rank=4)
+    w = tecsw.compute_ecsw_weights(to_torch(c), tg, method="ecm",
+                                   ecm_tolerance=1e-3, ecm_rank=4)
+    # a rank-4 sketch needs few points: at most rank + 1 interior cells
+    n_int = int((w[tecsw.interior_mask(tg).ravel()] > 0).sum())
+    assert 0 < n_int <= 5
     args = (5.0, "nnls", 1e-4, None, 1e-2, None, "inflow")
     want = jecsw.compute_ecsw_weights(c, jg, *args)
     got = tecsw.compute_ecsw_weights(to_torch(c), tg, *args)
