@@ -85,6 +85,17 @@ Phases, each printing its own lines:
    run_prom pallas, B4 in run_hprom pallas; the PROM error under 2%, the
    HPROM's under 3%, each kernel engine within ENGINE_TOL of its generic
    engine.
+18. [closures] the POD-RBF closure ROMs through the runner main()s at
+   250^2, 500 steps, (5.19, 0.026) and 10 + 140 modes in a fresh
+   temporary directory: run_pod_rbf_global (the 150-mode basis from the 9
+   training FOMs through B1, the (epsilon x kernel) grid-search fit on the
+   card, 499 online steps after the warm_q1 re-seed), run_pod_rbf_hprom
+   --compute-ecsw (global variant, nnls, bc_w 10) and run_pod_rbf (kNN,
+   epsilon 0.01, k 100; then again with --f32): wall time, online steps/s, GN iterations, the
+   error against the FOM beside the JAX package's record, the fit's time
+   and choice, N_e and the times of the closure training matrix and the
+   NNLS, the B1 launches; each error finite and under twice the JAX
+   record (CLOSURE_LIMIT).
 Each main path runs with the kernels' counts set to 0 just before it and
 read just after; it fails if a kernel of the path was not launched.
 
@@ -194,6 +205,15 @@ PROM_LIMIT = 2.0           # percent
 HPROM_LIMIT = 3.0
 # every weight method's stopping target at 64^2: the recipe's 1e-4
 WEIGHT_TARGET = 1e-4
+# [closures]: the runners' defaults; the JAX package's records at (5.19,
+# 0.026) (RESULTS.md: POD-RBF global 2.03%, its HPROM 3.27%, kNN with
+# eps 0.01 and k 100 5.72%); a run fails above twice the record. The kNN
+# PROM runs twice: with the float64 state, then with --f32, whose error
+# shows how much of the gap to the JAX record (taken with a float32
+# online state) the state's precision accounts for
+CLOSURE_RECORD = {"global": 2.03, "hprom": 3.27, "knn": 5.72,
+                  "knn_f32": 5.72}
+CLOSURE_LIMIT = {key: 2 * rec for key, rec in CLOSURE_RECORD.items()}
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM, and
 # FP32 / FP64 outside the tensor cores
@@ -1572,6 +1592,89 @@ def phase_runners(card, b1_launches, gn_launches):
     return b1_launches
 
 
+def phase_closures(card, b1_launches):
+    """The POD-RBF closure ROMs through the port's runner main()s at 250^2
+    in a fresh working directory: run_pod_rbf_global (basis, grid-search
+    fit, online), run_pod_rbf_hprom --compute-ecsw (global) on the model
+    it saved, and run_pod_rbf (kNN, the reference's eps 0.01, k 100),
+    with the float64 state and then with --f32. Returns b1_launches plus the phase's B1 launches."""
+    from finitedifference_tpu_torch.runners import (
+        run_pod_rbf,
+        run_pod_rbf_global,
+        run_pod_rbf_hprom,
+    )
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="fd_closures_")
+    home = os.getcwd()
+    os.chdir(workdir)
+    steps, mu = RUNNER_STEPS, RUNNER_MU
+    tag = f"[closures] {RUNNER_N}x{RUNNER_N} {steps} steps at {mu}"
+    runs = (
+        ("global", "run_pod_rbf_global", run_pod_rbf_global.main, {}),
+        ("hprom", "run_pod_rbf_hprom --compute-ecsw (global, nnls, bc_w "
+         "10)", run_pod_rbf_hprom.main,
+         dict(variant="global", weights_method="nnls", compute_ecsw=True,
+              bc_w=10.0)),
+        ("knn", "run_pod_rbf (kNN, eps 0.01, k 100)", run_pod_rbf.main,
+         dict(epsilon=0.01, neighbors=100)),
+        ("knn_f32", "run_pod_rbf --f32 (kNN, eps 0.01, k 100, float32 "
+         "state)", run_pod_rbf.main,
+         dict(epsilon=0.01, neighbors=100, f32=True)),
+    )
+    phase_b1 = 0
+    try:
+        for key, label, main, kw in runs:
+            (el, err), wall, counts, out = run_runner(
+                label, main, mu1=mu[0], mu2=mu[1], num_cells=RUNNER_N,
+                num_steps=steps, num_primary=10, num_secondary=140, **kw)
+            # the global PROM re-seeds step 0 with the training
+            # trajectory's first step (warm_q1) and runs the other 499
+            online = steps - 1 if key == "global" else steps
+            gn = int(_found(r"Total GN iterations: (\d+)", out, label)[-1])
+            b1 = counts["wavefront_solve"]
+            check(sum(counts.values()) == b1,
+                  f"{label}: Gauss-Newton kernels launched: {counts}")
+            check(bool(np.isfinite(err)) and err < CLOSURE_LIMIT[key],
+                  f"{label}: error {err}% (limit {CLOSURE_LIMIT[key]}%)")
+            phase_b1 += b1
+            line = (f"{tag} {label}: wall {wall:.2f} s, {online / el:.2f} "
+                    f"online steps/s ({el:.3f} s), {gn} GN its "
+                    f"({gn / online:.3f}/step), error vs FOM {err:.4f}% "
+                    f"(JAX record {CLOSURE_RECORD[key]:.2f}%, limit "
+                    f"{CLOSURE_LIMIT[key]:.2f}%)")
+            if key == "global":
+                foms = re.findall(r"Computed FOM snaps for .* in "
+                                  r"([\d.e+-]+) s", out)
+                check(len(foms) == 10 and b1 > 0,
+                      f"{label}: {len(foms)} FOMs, {b1} B1 launches")
+                fit_s, pairs = _found(r"grid-search fit time: ([\d.]+)s "
+                                      r"\((\d+) pairs\)", out, label)[-1]
+                eps, kern = _found(r"grid-search best: \{'epsilon': "
+                                   r"([\d.e+-]+), 'kernel': '(\w+)'", out,
+                                   label)[-1]
+                line += (f"; the basis and the test point: 10 FOMs through "
+                         f"B1 in {sum(map(float, foms)):.2f} s; grid-search "
+                         f"fit on the card {float(fit_s):.2f} s over "
+                         f"{pairs} pairs, chose {kern}, eps "
+                         f"{float(eps):.4g}")
+            elif key == "hprom":
+                n_e = int(_found(r"N_e = (\d+)", out, label)[-1])
+                build_s = float(_found(r"closure training matrix .*: "
+                                       r"([\d.]+)s", out, label)[-1])
+                solve_s = float(_found(r"weight solve time: ([\d.]+)s",
+                                       out, label)[-1])
+                line += (f"; N_e {n_e}, closure training matrix "
+                         f"{build_s:.2f} s, NNLS {solve_s:.2f} s")
+            print(line + f"; {b1} B1 launches ({card})")
+    finally:
+        os.chdir(home)
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(phase_b1 > 0, "[closures] launched no wavefront kernel")
+    print(f"[closures] phase {time.perf_counter() - t_phase:.1f} s, "
+          f"{phase_b1} B1 launches")
+    return b1_launches + phase_b1
+
 def phase_weight_methods(card, grid, basis, pairs, c):
     """The other weight methods at 64^2 on the recipe's training matrix
     (on the card): ECM (rank-800 sketch on the card, cubature on the
@@ -1653,6 +1756,7 @@ def main():
     phase_fine_prom(card, gn_launches)
     phase_weight_methods(card, *phase_ecsw_recipe(card, gn_launches))
     launches = phase_runners(card, launches, gn_launches)
+    launches = phase_closures(card, launches)
     check(seg_launches > 0, "the seg paths launched no segmented kernel")
     for k, v in gn_launches.items():
         check(v > 0, f"the ROM path launched no {k} kernel")

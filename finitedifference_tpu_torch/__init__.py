@@ -21,8 +21,12 @@ Ported so far:
   run_hprom, run_sweep; `python -m finitedifference_tpu_torch.runners.X`),
   the rest of ecsw (FISTA, ECM, the sequential, multilevel and
   device-resident weight recipes) and utils (timers, profiling);
-- convert, which carries grids, layouts, meshes, padded inputs, arrays
-  and results across from the JAX package.
+- the POD-RBF closure ROMs: closures (the global and kNN RBF closures,
+  the manifold decoder), rom.manifold_rom, solvers.fit_reduced_coords,
+  ecsw.ecsw_training_matrix_closure, training (the RBF fits) and the
+  runners run_pod_rbf_global, run_pod_rbf_hprom and run_pod_rbf;
+- convert, which carries grids, layouts, meshes, padded inputs, arrays,
+  results and the RBF closure models across from the JAX package.
 Entry points run on the CUDA device unless given CPU tensors or
 device="cpu" (device.py): arrays that are not tensors never land on the
 CPU by default. Importing the package pins full-f32 matmuls (no TF32;

@@ -1,0 +1,23 @@
+"""Nonlinear closure models for manifold ROMs (PyTorch).
+
+Counterpart of finitedifference_tpu/closures. Every closure maps primary
+reduced coordinates q_p to secondary coordinates q_s, giving the decoder
+
+    w(y) = U_p @ y + U_s @ closure(y)
+
+A closure is a pair of callables (predict, jacobian), with an optional
+fused form; `manifold_decoder` composes them with the POD blocks into the
+(decode, dec_jac) pair that solvers.gauss_newton consumes. Ported so far:
+the global and kNN RBF closures (closures/rbf.py).
+"""
+
+from finitedifference_tpu_torch.closures.common import (
+    Closure,
+    MinMaxScaler,
+    fit_minmax,
+    manifold_decoder,
+    manifold_decoder_fused,
+)
+
+__all__ = ["Closure", "MinMaxScaler", "fit_minmax", "manifold_decoder",
+           "manifold_decoder_fused"]

@@ -1,11 +1,14 @@
 """Carrying state across from the JAX package, without importing jax.
 
 Grids, layouts, sampled meshes, factored blocks, the tensor HPROM's
-operators and results are read field by field from any object that has
-the fields; arrays go through numpy onto the CUDA device unless a
-`device` is given (device="cpu" for the CPU). The FOM and the linear
-ROMs have no learned weights: the POD basis (and the padded layouts made
-from it) is the state carried across.
+operators, results and the RBF closure models are read field by field
+from any object that has the fields; arrays go through numpy onto the
+CUDA device unless a `device` is given (device="cpu" for the CPU). The
+FOM and the linear ROMs have no learned weights: the POD basis (and the
+padded layouts made from it) is the state carried across. The RBF
+closures' fitted state (weights, scaled training set, scaler) comes
+across with global_rbf_from_jax / knn_rbf_from_jax, or through the
+shared .npz model file (training/rbf_train.load_global_rbf).
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from finitedifference_tpu_torch.device import default_device
+from finitedifference_tpu_torch.closures.common import MinMaxScaler
+from finitedifference_tpu_torch.closures.rbf import GlobalRBF, KNNRBF
+from finitedifference_tpu_torch.device import resolve_device
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops.sampled import SampledMesh
 from finitedifference_tpu_torch.ops.skewed import SkewedLayout
@@ -39,7 +44,7 @@ def to_torch(a, device=None, dtype=None) -> torch.Tensor:
     """A copy of an array (numpy, or anything np.asarray takes) as a
     tensor on `device` (default: the CUDA device)."""
     return torch.tensor(np.asarray(a), dtype=dtype,
-                        device=device or default_device())
+                        device=resolve_device(device))
 
 
 _MESH_BOOL = ("has_west", "has_south", "is_left")
@@ -71,6 +76,32 @@ def rom_result_from_jax(res, device=None) -> ROMResult:
     """A ROMResult with the red_coords and total_gn_its of `res`."""
     return ROMResult(red_coords=to_torch(res.red_coords, device=device),
                      total_gn_its=int(res.total_gn_its))
+
+
+def scaler_from_jax(scaler, device=None) -> MinMaxScaler:
+    """A MinMaxScaler with the scale_ and min_ arrays of `scaler`."""
+    return MinMaxScaler(scale_=to_torch(scaler.scale_, device=device),
+                        min_=to_torch(scaler.min_, device=device))
+
+
+def global_rbf_from_jax(model, device=None) -> GlobalRBF:
+    """A GlobalRBF with the weights, scaled training set, epsilon, kernel
+    and scaler of `model` (the JAX package's GlobalRBF)."""
+    return GlobalRBF(w_global=to_torch(model.w_global, device=device),
+                     q_p_train=to_torch(model.q_p_train, device=device),
+                     epsilon=float(model.epsilon), kernel=str(model.kernel),
+                     scaler=scaler_from_jax(model.scaler, device=device))
+
+
+def knn_rbf_from_jax(model, device=None) -> KNNRBF:
+    """A KNNRBF with the scaled training pairs, epsilon, neighbour count,
+    kernel, scaler and ridge of `model` (the JAX package's KNNRBF)."""
+    return KNNRBF(q_p_train=to_torch(model.q_p_train, device=device),
+                  q_s_train=to_torch(model.q_s_train, device=device),
+                  epsilon=float(model.epsilon),
+                  neighbors=int(model.neighbors), kernel=str(model.kernel),
+                  scaler=scaler_from_jax(model.scaler, device=device),
+                  ridge=float(model.ridge))
 
 
 def _to_numpy(x):

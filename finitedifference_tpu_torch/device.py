@@ -8,6 +8,7 @@ is no silent fallback to the CPU when no card is present.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,6 +18,20 @@ def default_device() -> torch.device:
         raise RuntimeError("no CUDA device: pass CPU tensors or "
                            "device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the CUDA device (raises when
+    there is none)."""
+    return default_device() if device is None else torch.device(device)
+
+
+def to_host(x) -> np.ndarray:
+    """x as a host NumPy array; a tensor is waited for and copied from its
+    device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def as_tensor(x, device=None, dtype=None) -> torch.Tensor:

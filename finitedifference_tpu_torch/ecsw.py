@@ -24,9 +24,8 @@ Counterpart of finitedifference_tpu/ecsw.py:
   (the scoring GEMV on the device, the active set on the host) and
   `multilevel_nnls_weights_device` (FISTA screening on the device, an
   exact host solve on the screened columns).
-
-Not ported yet: `ecsw_training_matrix_closure`, which waits for the
-closures (ROADMAP Queue A).
+* `ecsw_training_matrix_closure`: the training matrix of the closure
+  ROMs, V = dec_jac(y) at coordinates fitted to each snapshot.
 """
 
 from __future__ import annotations
@@ -36,12 +35,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from finitedifference_tpu_torch.device import as_tensor
+from finitedifference_tpu_torch.device import as_tensor, to_host
 from finitedifference_tpu_torch.grid import Grid2D
 from finitedifference_tpu_torch.ops.stencil import (
     apply_jacobian,
     burgers_residual_flat,
     inflow_bc_term,
+    jacobian_times_basis,
     source_term,
 )
 
@@ -90,11 +90,30 @@ def ecsw_training_matrix(grid: Grid2D, snaps, prev_snaps, basis,
     return out.reshape(s_total * k, n)
 
 
-def _host(C) -> np.ndarray:
-    """C as a host NumPy array (a tensor is copied from its device)."""
-    if isinstance(C, torch.Tensor):
-        return C.detach().cpu().numpy()
-    return np.asarray(C)
+def ecsw_training_matrix_closure(grid: Grid2D, snaps, prev_snaps,
+                                 decode, dec_jac, fit_y0, mu1, mu2,
+                                 dt) -> torch.Tensor:
+    """Training matrix for nonlinear-closure ROMs (RNM / RBF / GP / AE).
+
+    For each snapshot: fit reduced coordinates y to it (the caller's
+    `fit_y0`, typically solvers.fit_reduced_coords on the decoder), then
+    the same work terms as ecsw_training_matrix with V = dec_jac(y, w) in
+    place of the linear basis. A loop over the snapshots on their device
+    (the card unless they are tensors elsewhere); returns the
+    (n_snaps * k, n_cells) tensor there.
+    """
+    snaps = as_tensor(snaps)
+    prev_snaps = as_tensor(prev_snaps, device=snaps.device)
+    n = grid.n_cells
+    blocks = []
+    for i in range(snaps.shape[1]):
+        y = fit_y0(snaps[:, i])
+        w = decode(y)
+        v = dec_jac(y, w)
+        f = burgers_residual_flat(w, prev_snaps[:, i], mu1, mu2, dt, grid)
+        jv = jacobian_times_basis(w, v, dt, grid)
+        blocks.append((jv[:n] * f[:n, None] + jv[n:] * f[n:, None]).T)
+    return torch.cat(blocks, dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -795,7 +814,7 @@ def compute_ecsw_weights(C, grid: Grid2D, bc_w: float = 50.0,
         w_int = _ecm_weights(C, flat_interior, ecm_tolerance, ecm_rank,
                              verbose)
     else:
-        Ci = _host(C)[:, flat_interior]
+        Ci = to_host(C)[:, flat_interior]
         if method == "nnls":
             w_int, _, _ = nnls_gram(Ci, Ci.sum(axis=1),
                                     rel_err_thresh=rel_err_thresh,
@@ -858,7 +877,7 @@ def sequential_nnls_weights(C, grid: Grid2D, batch_size: int = 5000,
     each interior column batch against the *running* target residual so
     the accumulated solution covers the full assembly, then finish with
     a cleanup solve on the accumulated support."""
-    C = _host(C)
+    C = to_host(C)
     ny, nx = grid.ny, grid.nx
     interior = interior_mask(grid, ring)
     flat_interior = np.where(interior.ravel())[0]
@@ -920,7 +939,7 @@ def multilevel_nnls_weights(C, grid: Grid2D, num_subdomains: int = 12,
     grids, where the level-2 active-set cost grows as |support|^3).
     """
     device = C.device if isinstance(C, torch.Tensor) else None
-    C = _host(C)
+    C = to_host(C)
     ny, nx = grid.ny, grid.nx
     interior = interior_mask(grid, ring)
     flat_interior = np.where(interior.ravel())[0]

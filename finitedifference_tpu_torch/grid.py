@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from finitedifference_tpu_torch.device import default_device
+from finitedifference_tpu_torch.device import resolve_device
 
 
 def default_float() -> torch.dtype:
@@ -55,13 +55,13 @@ class Grid2D:
         the CUDA device)."""
         edges = torch.linspace(self.x_low, self.x_up, self.nx + 1,
                                dtype=dtype or default_float(),
-                               device=device or default_device())
+                               device=resolve_device(device))
         return 0.5 * (edges[1:] + edges[:-1])
 
     def yc(self, dtype=None, device=None) -> torch.Tensor:
         edges = torch.linspace(self.y_low, self.y_up, self.ny + 1,
                                dtype=dtype or default_float(),
-                               device=device or default_device())
+                               device=resolve_device(device))
         return 0.5 * (edges[1:] + edges[:-1])
 
     def grid_points(self):
@@ -75,7 +75,7 @@ class Grid2D:
         """w0 = 1 everywhere, flat (2*nx*ny,), on `device` (default: the
         CUDA device)."""
         return torch.ones(self.state_dim, dtype=dtype or default_float(),
-                          device=device or default_device())
+                          device=resolve_device(device))
 
     # --- layout helpers -------------------------------------------------
     def split_fields(self, w: torch.Tensor):

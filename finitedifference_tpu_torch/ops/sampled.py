@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from finitedifference_tpu_torch.device import default_device
+from finitedifference_tpu_torch.device import resolve_device
 from finitedifference_tpu_torch.grid import Grid2D
 
 
@@ -56,7 +56,7 @@ def build_sampled_mesh(grid: Grid2D, sample_inds,
                        device=None) -> SampledMesh:
     """Gather maps for `sample_inds` (cell indices; sorted here), on
     `device` (default: the CUDA device)."""
-    device = device or default_device()
+    device = resolve_device(device)
     sample_inds = np.sort(np.asarray(sample_inds))
     aug = generate_augmented_mesh(grid, sample_inds)
     lookup = {int(cell): i for i, cell in enumerate(aug)}

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from finitedifference_tpu_torch.device import default_device
+from finitedifference_tpu_torch.device import resolve_device
 from finitedifference_tpu_torch.grid import Grid2D, default_float
 
 
@@ -64,7 +64,7 @@ def _dtype_device(mu, dtype, device):
                           else default_float())
         device = device if device is not None else mu.device
     return dtype or default_float(), \
-        device if device is not None else default_device()
+        resolve_device(device)
 
 
 def source_term(grid: Grid2D, mu2, dt, dtype=None,

@@ -6,6 +6,9 @@ and the ECSW HPROM on a sampled mesh (inviscid_burgers_ecsw_fixed,
 hypernet2D.py:202-273). Each is a Python loop over time steps around the
 generic Gauss-Newton of solvers.py, on the device of the basis.
 
+`make_manifold_stepper` / `manifold_rom` run the same Gauss-Newton over a
+nonlinear decoder (the closure ROMs, closures/).
+
 Conventions match the reference: the initial condition is projected
 (y0 = V^T w0, w0 <- V y0); the reduced coordinates of all num_steps+1
 times are returned with the total Gauss-Newton iteration count, and full
@@ -144,6 +147,100 @@ def ecsw_hprom(grid: Grid2D, mesh, sample_weights, y0, basis_aug, dt,
         gn_kw=dict(max_its=max_its, relnorm_cutoff=relnorm_cutoff,
                    min_delta=min_delta, ls_dtype=ls_dtype,
                    ls_method=ls_method))
+
+
+def make_manifold_stepper(grid: Grid2D, decode, dec_jac, dt, num_steps,
+                          *, dtype, mesh=None,
+                          sample_weights=None, max_its: int = 20,
+                          relnorm_cutoff: float = 1e-5,
+                          min_delta: float = 0.1, ls_dtype=None,
+                          ls_method: str = "qr",
+                          line_search: bool = False,
+                          decode_and_jac=None):
+    """The online program of `manifold_rom`:
+    `run(y0, mu1, mu2) -> (red_coords (k, num_steps+1), total_gn_its)`.
+
+    (mu1, mu2) are run-time arguments, as in the JAX package, so one
+    stepper serves every test point. The state lives on y0's device in
+    `dtype`; with a SampledMesh, decode/dec_jac act on the augmented
+    sampled rows and the residual is ECSW-weighted by sample_weights.
+    Each step is a Gauss-Newton solve from the previous coordinates, with
+    the previous decoded state carried as w0.
+    """
+    gn_kw = dict(max_its=max_its, relnorm_cutoff=relnorm_cutoff,
+                 min_delta=min_delta, ls_dtype=ls_dtype,
+                 ls_method=ls_method, line_search=line_search,
+                 decode_and_jac=decode_and_jac)
+
+    def run(y0, mu1, mu2):
+        y0 = as_tensor(y0, dtype=dtype)
+        device = y0.device
+        mu1 = torch.as_tensor(mu1, dtype=dtype, device=device)
+        mu2 = torch.as_tensor(mu2, dtype=dtype, device=device)
+        if mesh is None:
+            src = source_term(grid, mu2, dt, dtype=dtype, device=device)
+            lbc = inflow_bc_term(grid, mu1, dt, dtype=dtype, device=device)
+
+            def make_res(wp):
+                return lambda w: burgers_residual_flat(
+                    w, wp, mu1, mu2, dt, grid, src, lbc)
+
+            def jac_apply(w, v):
+                return jacobian_times_basis(w, v, dt, grid)
+            wgt = None
+        else:
+            src = sampled_source(mesh, grid, mu2, dt, dtype)
+            lbc = sampled_inflow_bc(mesh, grid, mu1, dt, dtype)
+
+            def make_res(wp):
+                return lambda w: sampled_residual(
+                    w, wp, mu1, mu2, dt, grid, mesh, src, lbc)
+
+            def jac_apply(w, v):
+                return sampled_jacobian_times_basis(w, v, dt, grid, mesh)
+            sw = torch.as_tensor(sample_weights, device=device)
+            wgt = torch.cat((sw, sw)).to(dtype)
+
+        ys = torch.empty((num_steps + 1, y0.shape[0]), dtype=dtype,
+                         device=device)
+        ys[0] = y0
+        yp, wp, its = y0, decode(y0), 0
+        for i in range(num_steps):
+            out = gauss_newton(decode, dec_jac, make_res(wp), jac_apply,
+                               yp, weights=wgt, w0=wp, **gn_kw)
+            yp = out.y
+            wp = decode(yp)
+            its += out.num_its
+            ys[i + 1] = yp
+        return ys.T, its
+
+    return run
+
+
+def manifold_rom(grid: Grid2D, y0, decode, dec_jac, dt, num_steps,
+                 mu1, mu2, *, mesh=None, sample_weights=None,
+                 max_its: int = 20, relnorm_cutoff: float = 1e-5,
+                 min_delta: float = 0.1, ls_dtype=None,
+                 ls_method: str = "qr",
+                 line_search: bool = False,
+                 decode_and_jac=None) -> ROMResult:
+    """Generic LSPG ROM over a (possibly nonlinear) decoder.
+
+    One stepper covers the reference's RNM/HRNM, POD-RBF PROM/HPROM,
+    POD-GP HPROM and AE-LSPG: the variant is entirely in (decode,
+    dec_jac). decode/dec_jac act on the full state when mesh is None, or
+    on the augmented sampled rows when a SampledMesh and sample_weights
+    are given (closures.manifold_decoder over gathered bases).
+    """
+    y0 = as_tensor(y0)
+    run = make_manifold_stepper(
+        grid, decode, dec_jac, dt, num_steps, dtype=y0.dtype,
+        mesh=mesh, sample_weights=sample_weights, max_its=max_its,
+        relnorm_cutoff=relnorm_cutoff, min_delta=min_delta,
+        ls_dtype=ls_dtype, ls_method=ls_method, line_search=line_search,
+        decode_and_jac=decode_and_jac)
+    red, its = run(y0, mu1, mu2)
+    return ROMResult(red_coords=red, total_gn_its=its)
 
 
 def prepare_hprom(grid: Grid2D, weights_full, basis):

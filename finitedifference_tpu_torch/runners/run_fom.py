@@ -11,6 +11,7 @@ import time
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import to_host
 from finitedifference_tpu_torch.fom import (
     inviscid_burgers_implicit2d,
     inviscid_burgers_implicit2d_skewed,
@@ -20,7 +21,6 @@ from finitedifference_tpu_torch.runners.common import (
     default_config,
     make_problem,
     runner_device,
-    sync,
     warm_enabled,
 )
 from finitedifference_tpu_torch.snapshots import param_to_snap_fn
@@ -55,7 +55,7 @@ def main(mu1=4.75, mu2=0.02, num_cells=None, num_steps=None, f32=False,
     t0 = time.time()
     res = solve()
     elapsed = time.time() - t0
-    snaps = sync(res.snaps)
+    snaps = to_host(res.snaps)
     rate = cfg.num_steps / elapsed
     print(f"Elapsed FOM time: {elapsed:.3e} s "
           f"({rate:.2f} timesteps/s, {int(res.total_newton_its)} Newton its)")

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from finitedifference_tpu_torch.device import default_device
+from finitedifference_tpu_torch.device import resolve_device
 from finitedifference_tpu_torch.ecsw import (
     compute_ecsw_weights,
     ecsw_training_matrix,
@@ -74,7 +74,7 @@ def build_hprom_weights(cfg, grid, basis, weights_method, bc_w,
     run_HPROM_ecsw_joshua.py:55-111). The training matrix is built on
     `device` (the CUDA device when None); the NNLS methods solve on the
     host, ECM sketches on the device, multilevel screens on the device."""
-    device = default_device() if device is None else torch.device(device)
+    device = resolve_device(device)
     snaps = load_or_compute_snaps(list(mu_train), grid,
                                   torch.ones(grid.state_dim,
                                              dtype=torch.float64,

@@ -1,0 +1,115 @@
+"""POD-RBF PROM with global interpolation (reference run_POD_RBF_global.py):
+loads or trains pod_rbf_global_model.npz by an (epsilon x kernel) grid
+search, then the manifold LSPG ROM at (mu1, mu2) against the cached FOM.
+
+    python -m finitedifference_tpu_torch.runners.run_pod_rbf_global
+        [--device cpu] [--retrain] [--num-primary 10 --num-secondary 140]
+
+Only `--search grid` is ported; cv, bayesian, aniso and svr raise
+NotImplementedError (ROADMAP Queue A item 4d).
+"""
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from finitedifference_tpu_torch.closures.rbf import global_rbf_closure
+from finitedifference_tpu_torch.runners.common import (
+    base_parser,
+    default_config,
+    make_problem,
+    res_path,
+    run_manifold,
+    runner_device,
+    split_training,
+)
+from finitedifference_tpu_torch.snapshots import load_or_compute_snaps
+from finitedifference_tpu_torch.training.rbf_train import (
+    load_global_rbf,
+    save_global_rbf,
+    train_global_rbf,
+)
+
+MODEL_PATH = "pod_rbf_global_model.npz"
+SEARCHES = ("grid", "cv", "bayesian", "aniso", "svr")
+
+
+def get_global_rbf(cfg, grid, w0, num_primary, num_secondary,
+                   model_path=None, retrain=False, search="grid",
+                   device=None):
+    """Build-or-load the global closure model: (u_p, u_s, closure).
+
+    search: the hyperparameter strategy. "grid" is the (epsilon x kernel)
+    grid search (compute_global_weights_with_kernels.py); the others of
+    the JAX runner are not ported yet.
+    """
+    if search not in SEARCHES:
+        raise ValueError(f"unknown search {search!r}; use one of "
+                         f"{SEARCHES}")
+    if search != "grid":
+        raise NotImplementedError(
+            f"search={search!r} is not ported yet (ROADMAP Queue A item "
+            f"4d: the other global-RBF searches); use search='grid'")
+    u_p, u_s, q_p, q_s = split_training(cfg, grid, w0,
+                                        num_primary + num_secondary,
+                                        num_primary, num_secondary,
+                                        device=device)
+    if model_path is None:
+        stem = MODEL_PATH
+        if num_primary != 10:
+            # a non-default split gets its own artifact
+            stem = stem.replace(".npz", f"_p{num_primary}.npz")
+        model_path = res_path(cfg, stem)
+    if retrain or not os.path.exists(model_path):
+        t0 = time.time()
+        model, log = train_global_rbf(q_p, q_s, seed=cfg.seed,
+                                      device=device, verbose=True)
+        print(f"{search}-search best: {log['best']}")
+        print(f"{search}-search fit time: {time.time() - t0:.2f}s "
+              f"({q_p.shape[0]} pairs)")
+        save_global_rbf(model, model_path)
+    else:
+        model = load_global_rbf(model_path, device=device)
+    return u_p, u_s, global_rbf_closure(model)
+
+
+def training_warm_q1(cfg, grid, w0, u_p, device=None):
+    """q_p of the first training trajectory at t=1 (the reference's step-0
+    reseed source, hypernet2D.py:1100-1102)."""
+    snaps = load_or_compute_snaps(cfg.mu_samples()[0], grid,
+                                  torch.as_tensor(w0, device=device),
+                                  cfg.dt, cfg.num_steps,
+                                  snap_folder=cfg.snap_folder)
+    return np.asarray(u_p).T @ snaps[:, 1]
+
+
+def main(mu1=4.75, mu2=0.02, num_primary=10, num_secondary=140,
+         retrain=False, num_cells=None, num_steps=None, f32=False,
+         search="grid", device="cuda"):
+    dev = runner_device(device)
+    cfg = default_config(num_cells, num_steps)
+    grid, w0 = make_problem(cfg)
+    u_p, u_s, closure = get_global_rbf(cfg, grid, w0, num_primary,
+                                       num_secondary, retrain=retrain,
+                                       search=search, device=dev)
+    return run_manifold(cfg, grid, w0, u_p, u_s, closure, mu1, mu2,
+                        f32=f32, label="POD-RBF-global",
+                        save_prefix="pod_rbf_global",
+                        warm_q1=training_warm_q1(cfg, grid, w0, u_p,
+                                                 device=dev),
+                        device=dev)
+
+
+if __name__ == "__main__":
+    p = base_parser(__doc__)
+    p.add_argument("--num-primary", type=int, default=10)
+    p.add_argument("--num-secondary", type=int, default=140)
+    p.add_argument("--retrain", action="store_true")
+    p.add_argument("--search", default="grid", choices=list(SEARCHES),
+                   help="hyper-parameter search strategy (only grid is "
+                        "ported)")
+    a = p.parse_args()
+    main(a.mu1, a.mu2, a.num_primary, a.num_secondary, a.retrain,
+         a.num_cells, a.num_steps, a.f32, a.search, a.device)

@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.device import to_host
 from finitedifference_tpu_torch.parallel.sweep import (
     sweep_fom,
     sweep_hprom,
@@ -31,7 +32,6 @@ from finitedifference_tpu_torch.runners.common import (
     make_problem,
     res_path,
     runner_device,
-    sync,
     warm_enabled,
 )
 from finitedifference_tpu_torch.snapshots import (
@@ -105,7 +105,7 @@ def main(n_mu1=3, n_mu2=3, model="fom", num_modes=95, num_cells=None,
             traj = basis @ traj.to(basis.dtype)
         hdm = np.load(fn)[:, :cfg.num_steps + 1]
         print(f"point ({float(m1):.4g}, {float(m2):.4g}): error vs the "
-              f"cached FOM {relative_error_pct(sync(traj), hdm):.4f}%")
+              f"cached FOM {relative_error_pct(to_host(traj), hdm):.4f}%")
     return elapsed
 
 

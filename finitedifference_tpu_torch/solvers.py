@@ -27,6 +27,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from finitedifference_tpu_torch.device import as_tensor
+
 
 def _as_col(b):
     return (b[:, None], True) if b.dim() == 1 else (b, False)
@@ -220,3 +222,26 @@ def gauss_newton(
         rn_prev = rn
     return GNResult(y=y, num_its=it - int(done), resnorm=rn,
                     init_norm=init_norm)
+
+
+def fit_reduced_coords(decode, dec_jac, y_init, target, *,
+                       max_its: int = 10, relnorm_cutoff: float = 1e-2,
+                       ls_method: str = "qr") -> GNResult:
+    """Fit reduced coordinates: min_y || decode(y) - target ||.
+
+    The reference's inner Gauss-Newton inside the closure ECSW
+    training-matrix builders (hypernet2D.py:2765-2773): start from the
+    projection y_init, iterate until the decode residual has shrunk by
+    relnorm_cutoff (1e-2) relative to the start's, at most max_its (10)
+    times. No stagnation stop (min_delta=0 disables it).
+    """
+    y_init = as_tensor(y_init)
+    target = as_tensor(target, device=y_init.device)
+    return gauss_newton(
+        decode, dec_jac,
+        lambda w: w - target,
+        lambda w, v: v,
+        y_init,
+        max_its=max_its, relnorm_cutoff=relnorm_cutoff,
+        min_delta=0.0, ls_method=ls_method,
+    )
