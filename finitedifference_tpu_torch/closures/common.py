@@ -54,6 +54,15 @@ def fit_minmax(data, feature_range=(-1.0, 1.0),
     return MinMaxScaler(scale_=scale, min_=minv)
 
 
+def _cho_factor(a):
+    """Lower Cholesky factor of a (or of each matrix of a batch); NaN where
+    a matrix is not positive definite (the JAX factorization's result
+    there), with no host sync and no exception."""
+    low, info = torch.linalg.cholesky_ex(a)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(low, float("nan")), low)
+
+
 class Closure(NamedTuple):
     """q_p -> q_s map with an explicit Jacobian.
 

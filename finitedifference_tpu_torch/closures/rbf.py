@@ -22,6 +22,7 @@ import torch
 from finitedifference_tpu_torch.closures.common import (
     Closure,
     MinMaxScaler,
+    _cho_factor,
     fit_minmax,
 )
 from finitedifference_tpu_torch.device import as_tensor
@@ -239,13 +240,6 @@ def _knn_gather(model: KNNRBF, x):
 # strictly positive-definite kernels (any point set): Cholesky-safe.
 # multiquadric/linear are only conditionally PD and keep the QR solve.
 _PD_KERNELS = frozenset({"gaussian", "imq", "matern"})
-
-
-def _cho_factor(a):
-    """Lower Cholesky factor of a; NaN where a is not positive definite
-    (the JAX factorization's result there), with no host sync."""
-    low, info = torch.linalg.cholesky_ex(a)
-    return torch.where(info == 0, low, torch.full_like(low, float("nan")))
 
 
 def _knn_local_weights(model: KNNRBF, xk, yk):

@@ -1,14 +1,17 @@
 """Carrying state across from the JAX package, without importing jax.
 
 Grids, layouts, sampled meshes, factored blocks, the tensor HPROM's
-operators, results and the RBF closure models are read field by field
+operators, results and the RBF and GP closure models are read field by field
 from any object that has the fields; arrays go through numpy onto the
 CUDA device unless a `device` is given (device="cpu" for the CPU). The
 FOM and the linear ROMs have no learned weights: the POD basis (and the
 padded layouts made from it) is the state carried across. The RBF
 closures' fitted state (weights, scaled training set, scaler) comes
 across with global_rbf_from_jax / knn_rbf_from_jax, or through the
-shared .npz model file (training/rbf_train.load_global_rbf).
+shared .npz model file (training/rbf_train.load_global_rbf); the GP
+closures' (training inputs or inducing points, alpha, length scales,
+amplitude, noise, nu, scaler) with gp_from_jax or the shared
+pod_gp_model.npz (training/gp_train.load_gp).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from finitedifference_tpu_torch.closures.common import MinMaxScaler
+from finitedifference_tpu_torch.closures.gp import GPModel, PerModeGPModel
 from finitedifference_tpu_torch.closures.rbf import GlobalRBF, KNNRBF
 from finitedifference_tpu_torch.device import resolve_device
 from finitedifference_tpu_torch.grid import Grid2D
@@ -102,6 +106,20 @@ def knn_rbf_from_jax(model, device=None) -> KNNRBF:
                   neighbors=int(model.neighbors), kernel=str(model.kernel),
                   scaler=scaler_from_jax(model.scaler, device=device),
                   ridge=float(model.ridge))
+
+
+def gp_from_jax(model, device=None):
+    """A GPModel, or a PerModeGPModel where `model` is the JAX package's
+    PerModeGPModel, with the fields of `model`."""
+    cls = PerModeGPModel if type(model).__name__ == "PerModeGPModel" \
+        else GPModel
+    return cls(x_train=to_torch(model.x_train, device=device),
+               alpha=to_torch(model.alpha, device=device),
+               length_scale=to_torch(model.length_scale, device=device),
+               amplitude=to_torch(model.amplitude, device=device),
+               noise=float(model.noise),
+               scaler=scaler_from_jax(model.scaler, device=device),
+               nu=float(model.nu))
 
 
 def _to_numpy(x):

@@ -8,9 +8,12 @@ read each other's files:
 - ecsw_weights_lspg[_method]{res_suffix}.npy (the HPROM weight fields);
 - param_snaps{res_suffix}/mu1_X+mu2_Y.npy (cached FOM trajectories);
 - {prefix}_snaps_mu1_X_mu2_Y.npy (a runner's reconstructed trajectory);
-- pod_rbf_global_model{res_suffix}.npz and
+- pod_rbf_global_model[_{search}]{res_suffix}.npz and
   ecsw_weights_rbf_{variant}_{method}{res_suffix}.npy (the POD-RBF
-  closure model and its HPROM weights).
+  closure models and their HPROM weights);
+- pod_gp_model{res_suffix}.npz and ecsw_weights_gp_{method}{res_suffix}.npy
+  (the POD-GP closure model, one file for every --per-mode variant, and
+  its HPROM weights).
 Everything runs on the CUDA device unless the caller asks for the CPU
 (`--device cpu`, `device="cpu"`); without a card, asking for it raises
 at once (device.default_device). Precision is pinned when the package is

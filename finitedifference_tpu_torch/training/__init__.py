@@ -1,8 +1,11 @@
 """Offline closure training (PyTorch).
 
 Counterpart of finitedifference_tpu/training. Ported so far: the
-projected training pairs (rnm_train.project_snapshots) and the RBF fits
-(rbf_train: dedup, the global (epsilon x kernel) grid search, the kNN
-(k, epsilon, ridge) search, the .npz model file). The RBF closures need
-no network: their fits are deterministic linear algebra.
+projected training pairs (rnm_train.project_snapshots); the RBF fits
+(rbf_train: dedup, the global (epsilon x kernel) grid search, its
+cross-validated, Bayesian and anisotropic variants, the kNN (k, epsilon,
+ridge) search, SVR (on svr.py's batched libsvm solver), the .npz model
+file); the GP fits (gp_train: train_gp, save_gp, load_gp). None of them
+needs a network: the fits are deterministic linear algebra and Adam
+from zeros.
 """

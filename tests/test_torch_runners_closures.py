@@ -18,7 +18,9 @@ which the kernel fits would otherwise amplify by their condition number.
   (measured 3e-10), the errors to 1e-6 points, the GN totals exactly.
 - The port reads the JAX model file and weights and gets JAX's numbers.
 - A new runner asked for the card where there is none fails at once;
-  the searches that are not ported raise NotImplementedError.
+  the other searches (cv, bayesian, aniso, svr), once not ported, run
+  (tests/test_torch_rbf_searches.py holds them to JAX's), and an unknown
+  one raises ValueError.
 """
 
 import contextlib
@@ -217,11 +219,17 @@ def test_runner_without_card_fails_at_once(runner, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("search", ["cv", "bayesian", "aniso", "svr"])
 def test_other_searches_not_ported(search, tmp_path, monkeypatch):
+    """The searches this test once found unported now run through the
+    runner from an empty directory: a finite error, the search's own model
+    file (none for svr, which trains on every run), nothing raised; an
+    unknown search still raises ValueError."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=f"search='{search}'.*Queue A item 4d"):
-        trun_g.main(num_cells=12, num_steps=8, search=search, device="cpu")
-    assert os.listdir(tmp_path) == []
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, err = trun_g.main(num_cells=12, num_steps=8, search=search,
+                             device="cpu")
+    assert np.isfinite(err)
+    stem = f"pod_rbf_global_model_{search}_12x12.npz"
+    assert os.path.exists(tmp_path / stem) == (search != "svr")
     with pytest.raises(ValueError, match="unknown search"):
         trun_g.main(num_cells=12, num_steps=8, search="grid2",
                     device="cpu")
@@ -255,3 +263,38 @@ def test_split_training_matches_jax(runs, tmp_path, monkeypatch):
             assert isinstance(g, np.ndarray) and g.shape == w.shape
             np.testing.assert_array_equal(g, w)
     assert got[3].shape == (81, 5)
+
+
+def test_knn_hprom_at_the_reference_epsilon_matches_jax(tmp_path,
+                                                        monkeypatch):
+    """run_pod_rbf_hprom --variant knn --compute-ecsw at the reference's
+    eps 0.01, k 100, at 12^2 and 40 steps (369 training pairs, so the 100
+    neighbours are a true subset), the port's directory starting from the
+    JAX basis and cache: the same N_e and Gauss-Newton total, weights to
+    1e-6 (measured 1e-7: the local systems' condition number is near
+    1e10) and trajectories to 1e-8 (measured 2e-9). At 250^2 the same
+    runner's error moves with the rounding of its inputs (PERF.md §7)."""
+    kw = dict(num_cells=12, num_steps=40, num_primary=3, num_secondary=5,
+              variant="knn", compute_ecsw=True)
+    weights = "ecsw_weights_rbf_knn_nnls_12x12.npy"
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jdir.mkdir()
+    monkeypatch.chdir(jdir)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, err_j = jrun_h.main(*MU, **kw)
+    out_j = buf.getvalue()
+    tdir.mkdir()
+    shutil.copy(jdir / BASIS, tdir / BASIS)
+    shutil.copytree(jdir / SNAPS, tdir / SNAPS)
+    monkeypatch.chdir(tdir)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, err_t = trun_h.main(*MU, **kw, device="cpu")
+    out_t = buf.getvalue()
+    for pattern in (r"N_e = (\d+)", r"Total GN iterations: (\d+)"):
+        assert re.findall(pattern, out_t) == re.findall(pattern, out_j)
+    assert abs(err_t - err_j) <= 1e-6
+    assert rel(np.load(tdir / weights), np.load(jdir / weights)) <= 1e-6
+    saved = "pod_rbf_hprom_knn_snaps_mu1_5.19_mu2_0.026.npy"
+    assert rel(np.load(tdir / saved), np.load(jdir / saved)) <= 1e-8
