@@ -106,6 +106,16 @@ Phases, each printing its own lines:
    error under twice the JAX record (GP_LIMIT); then run_pod_rbf_global
    --search cv, bayesian, aniso and svr: the fit's time and choice, the
    PROM error (finite; no JAX record at 250^2).
+20. [rnm] in the same directory, on its basis and snapshot cache: run_rnm
+   --retrain at (4.75, 0.02) on all 4,509 projected pairs for RNM_EPOCHS
+   of the recipe's 5000 epochs (batch 16), then run_hrnm --compute-ecsw at
+   (5.19, 0.026) on the checkpoint it saved: the seconds an epoch, the
+   first and last validation loss printed, the sidecar's best epoch, N_e,
+   the training matrix's and the NNLS's times, online steps/s, GN its, the
+   error against the FOM beside the JAX package's 3932-epoch records
+   (finite; the validation loss must fall); then sweep_manifold of the
+   trained closure over the three canonical points, each row within
+   RNM_SWEEP_TOL of a lone manifold_rom at its point.
 Each main path runs with the kernels' counts set to 0 just before it and
 read just after; it fails if a kernel of the path was not launched.
 
@@ -243,6 +253,17 @@ CLOSURE_LIMIT = {key: 2 * rec for key, rec in CLOSURE_RECORD.items()
 GP_RECORD = {"none": 1.66, "full": 1.89}
 GP_LIMIT = {key: 2 * rec for key, rec in GP_RECORD.items()}
 GP_SEARCHES = ("cv", "bayesian", "aniso", "svr")
+# [rnm]: the POD-ANN closure at the runners' defaults, trained for
+# RNM_EPOCHS of the recipe's 5000 (the cut of this phase's depth); the
+# JAX package's records (RESULTS.md:128,139) come from a network that
+# trained to epoch 3932 (rnm_model.msgpack.json): RNM 1.00% at (4.75,
+# 0.02) (1.98% at (5.19, 0.026)), HRNM 2.48% at (5.19, 0.026). The errors
+# must be finite; the sweep's rows must equal lone runs
+RNM_EPOCHS = 200
+RNM_MU = (4.75, 0.02)
+RNM_RECORD = {"rnm": 1.00, "hrnm": 2.48}
+RNM_SWEEP_MUS = [(5.19, 0.026), (4.56, 0.019), (4.75, 0.02)]
+RNM_SWEEP_TOL = 1e-12
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM, and
 # FP32 / FP64 outside the tensor cores
@@ -1702,6 +1723,7 @@ def phase_closures(card, b1_launches):
                 line += _offline(out, label)
             print(line + f"; {b1} B1 launches ({card})")
         phase_b1 += phase_gp(card, tag)
+        phase_b1 += phase_rnm(card, tag)
     finally:
         os.chdir(home)
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1799,6 +1821,122 @@ def phase_gp(card, tag):
     print(f"[gp] phase {time.perf_counter() - t_phase:.1f} s, {phase_b1} B1 "
           f"launches")
     return phase_b1
+
+def phase_rnm(card, tag):
+    """[rnm], in [closures]' working directory (its basis, snapshot cache
+    and FOMs reused): run_rnm --retrain for RNM_EPOCHS epochs at RNM_MU,
+    run_hrnm --compute-ecsw at RUNNER_MU on the checkpoint it saved, then
+    sweep_manifold of that closure over RNM_SWEEP_MUS against lone
+    manifold_rom runs. Returns the phase's B1 launches (the FOM at RNM_MU,
+    unless the cache holds it)."""
+    from finitedifference_tpu_torch.closures.ann import init_rnm, rnm_closure
+    from finitedifference_tpu_torch.closures.common import (
+        manifold_decoder,
+        manifold_decoder_fused,
+    )
+    from finitedifference_tpu_torch.parallel.sweep import sweep_manifold
+    from finitedifference_tpu_torch.pod import split_basis
+    from finitedifference_tpu_torch.rom import manifold_rom
+    from finitedifference_tpu_torch.runners import common as rc
+    from finitedifference_tpu_torch.runners import run_hrnm, run_rnm
+    from finitedifference_tpu_torch.training.monitor import load_checkpoint
+
+    t_phase = time.perf_counter()
+    steps = RUNNER_STEPS
+    tag = tag.replace("[closures]", "[rnm]").split(" at ")[0]
+    cfg = rc.default_config(RUNNER_N, steps)
+    model_path = rc.res_path(cfg, run_rnm.MODEL_PATH)
+    phase_b1 = 0
+    label = (f"run_rnm --retrain --epochs {RNM_EPOCHS} at {RNM_MU} (the "
+             f"recipe's 5000 cut to {RNM_EPOCHS})")
+    (el, err), wall, counts, out = run_runner(
+        label, run_rnm.main, mu1=RNM_MU[0], mu2=RNM_MU[1],
+        num_cells=RUNNER_N, num_steps=steps, num_primary=10,
+        num_secondary=140, epochs=RNM_EPOCHS, retrain=True)
+    gn = int(_found(r"Total GN iterations: (\d+)", out, label)[-1])
+    ran, train_s, per_epoch = _found(
+        r"trained (\d+) epochs in ([\d.]+) s \(([\d.]+) s/epoch\)", out,
+        label)[-1]
+    fit_s, pairs = _found(r"rnm fit time: ([\d.]+)s \((\d+) pairs\)", out,
+                          label)[-1]
+    vals = [float(v) for v in _found(r"  epoch \d+: train \S+ val (\S+)",
+                                     out, label)]
+    with open(model_path + ".json") as f:
+        side = json.load(f)
+    b1 = counts["wavefront_solve"]
+    check(sum(counts.values()) == b1,
+          f"{label}: Gauss-Newton kernels launched: {counts}")
+    check(bool(np.isfinite(err)), f"{label}: error {err}%")
+    check(len(vals) >= 2 and vals[-1] < vals[0],
+          f"{label}: the validation loss did not fall: {vals}")
+    check(os.path.exists(model_path)
+          and 1 <= side["epoch"] <= RNM_EPOCHS
+          and side["best_crit"] == min(side["test_crits"]),
+          f"{label}: the checkpoint and its sidecar ({side['epoch']})")
+    phase_b1 += b1
+    print(f"{tag} at {RNM_MU} {label}: wall {wall:.2f} s; fit {float(fit_s):.2f}"
+          f" s over {pairs} pairs, {ran} epochs in {float(train_s):.2f} s "
+          f"({float(per_epoch):.4f} s/epoch), validation loss {vals[0]:.3e} "
+          f"(epoch 0) -> {vals[-1]:.3e} (the last printed), best "
+          f"{side['best_crit']:.3e} at epoch {side['epoch']}; "
+          f"{steps / el:.2f} online steps/s ({el:.3f} s), {gn} GN its "
+          f"({gn / steps:.3f}/step), error vs FOM {err:.4f}% (JAX record "
+          f"{RNM_RECORD['rnm']:.2f}% after 3932 epochs; 1.98% at (5.19, "
+          f"0.026)); {b1} B1 launches ({card})")
+
+    label = "run_hrnm --compute-ecsw (nnls, bc_w 10) on that checkpoint"
+    (el, err), wall, counts, out = run_runner(
+        label, run_hrnm.main, mu1=RUNNER_MU[0], mu2=RUNNER_MU[1],
+        num_cells=RUNNER_N, num_steps=steps, num_primary=10,
+        num_secondary=140, compute_ecsw=True)
+    gn = int(_found(r"Total GN iterations: (\d+)", out, label)[-1])
+    n_e = int(_found(r"N_e = (\d+)", out, label)[-1])
+    b1 = counts["wavefront_solve"]
+    check(sum(counts.values()) == b1,
+          f"{label}: Gauss-Newton kernels launched: {counts}")
+    check(bool(np.isfinite(err)) and n_e > 0,
+          f"{label}: error {err}%, N_e {n_e}")
+    check("rnm fit time" not in out, f"{label}: retrained the network")
+    phase_b1 += b1
+    print(f"{tag} at {RUNNER_MU} {label}: wall {wall:.2f} s"
+          + _offline(out, label)
+          + f"; {steps / el:.2f} online steps/s ({el:.3f} s), {gn} GN its "
+          f"({gn / steps:.3f}/step), error vs FOM {err:.4f}% (JAX record "
+          f"{RNM_RECORD['hrnm']:.2f}% after 3932 epochs); {b1} B1 launches "
+          f"({card})")
+
+    # the sweep of the trained closure, full mesh, float64 state
+    grid, w0 = rc.make_problem(cfg)
+    basis = rc.get_or_build_basis(cfg, grid, w0, 150, device=DEVICE)
+    u_p, u_s = (torch.as_tensor(b, device=DEVICE)
+                for b in split_basis(basis, 10, 140))
+    closure = rnm_closure(load_checkpoint(
+        model_path, init_rnm(10, 140, device=DEVICE)))
+    decode, dec_jac = manifold_decoder(u_p, u_s, closure)
+    kw = dict(decode_and_jac=manifold_decoder_fused(u_p, u_s, closure),
+              **rc.default_ls(DEVICE))
+    y0 = u_p.T @ torch.as_tensor(w0, device=DEVICE)
+    label = f"sweep_manifold over {len(RNM_SWEEP_MUS)} points"
+    red, wall, counts, _ = run_runner(
+        label, lambda: sweep_manifold(grid, y0, decode, dec_jac, cfg.dt,
+                                      steps, RNM_SWEEP_MUS, **kw))
+    check(sum(counts.values()) == 0, f"{label}: kernels launched: {counts}")
+    check(red.shape == (len(RNM_SWEEP_MUS), 10, steps + 1)
+          and bool(torch.isfinite(red).all()), f"{label}: {red.shape}")
+    diffs = []
+    for i, (m1, m2) in enumerate(RNM_SWEEP_MUS):
+        lone = manifold_rom(grid, y0, decode, dec_jac, cfg.dt, steps, m1,
+                            m2, **kw).red_coords
+        diffs.append(rel_err(red[i], lone))
+        check(diffs[-1] <= RNM_SWEEP_TOL,
+              f"{label}: row {i} against the lone run: rel {diffs[-1]}")
+    print(f"{tag} {label} {RNM_SWEEP_MUS}: {len(RNM_SWEEP_MUS) * steps / wall:.2f}"
+          f" aggregate steps/s ({wall:.2f} s), rows against lone runs rel "
+          f"{max(diffs):.1e} (limit {RNM_SWEEP_TOL:g}) ({card})")
+    print(f"[rnm] phase {time.perf_counter() - t_phase:.1f} s, {phase_b1} B1 "
+          f"launches")
+    return phase_b1
+
 
 def phase_weight_methods(card, grid, basis, pairs, c):
     """The other weight methods at 64^2 on the recipe's training matrix

@@ -8,8 +8,10 @@ reduced coordinates q_p to secondary coordinates q_s, giving the decoder
 A closure is a pair of callables (predict, jacobian), with an optional
 fused form; `manifold_decoder` composes them with the POD blocks into the
 (decode, dec_jac) pair that solvers.gauss_newton consumes. Ported so far:
-the global and kNN RBF closures (closures/rbf.py) and the Matérn GP
-closures with their four fits (closures/gp.py).
+the global and kNN RBF closures (closures/rbf.py), the Matérn GP
+closures with their four fits (closures/gp.py) and the RNM network
+closure (closures/ann.py: RNM_NN, an nn.Module, with Flax's init and its
+jacfwd Jacobian).
 """
 
 from finitedifference_tpu_torch.closures.common import (

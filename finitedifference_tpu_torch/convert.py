@@ -11,7 +11,9 @@ across with global_rbf_from_jax / knn_rbf_from_jax, or through the
 shared .npz model file (training/rbf_train.load_global_rbf); the GP
 closures' (training inputs or inducing points, alpha, length scales,
 amplitude, noise, nu, scaler) with gp_from_jax or the shared
-pod_gp_model.npz (training/gp_train.load_gp).
+pod_gp_model.npz (training/gp_train.load_gp). A Flax RNM network's
+parameter tree becomes an RNM_NN with rnm_from_flax; the port's own
+checkpoints are torch state dicts (training/monitor.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from finitedifference_tpu_torch.closures.ann import RNM_NN
 from finitedifference_tpu_torch.closures.common import MinMaxScaler
 from finitedifference_tpu_torch.closures.gp import GPModel, PerModeGPModel
 from finitedifference_tpu_torch.closures.rbf import GlobalRBF, KNNRBF
@@ -120,6 +123,27 @@ def gp_from_jax(model, device=None):
                noise=float(model.noise),
                scaler=scaler_from_jax(model.scaler, device=device),
                nu=float(model.nu))
+
+
+def rnm_from_flax(params, device=None) -> RNM_NN:
+    """An RNM_NN holding a Flax RNM_NN's parameters: each
+    params["params"]["Dense_i"]["kernel"], (in, out), becomes Linear i's
+    weight as (out, in), the biases as they are, in their own dtype; the
+    hidden widths are read from the kernels' shapes."""
+    dense = params["params"]
+    kernels = [np.asarray(dense[f"Dense_{i}"]["kernel"])
+               for i in range(len(dense))]
+    biases = [np.asarray(dense[f"Dense_{i}"]["bias"])
+              for i in range(len(dense))]
+    module = RNM_NN(kernels[0].shape[0], kernels[-1].shape[1],
+                    hidden=[k.shape[1] for k in kernels[:-1]],
+                    dtype=getattr(torch, kernels[0].dtype.name), device="cpu")
+    state = {}
+    for i, (k, b) in enumerate(zip(kernels, biases)):
+        state[f"layers.{i}.weight"] = torch.from_numpy(k.T.copy())
+        state[f"layers.{i}.bias"] = torch.from_numpy(b.copy())
+    module.load_state_dict(state, assign=True)
+    return module.to(resolve_device(device))
 
 
 def _to_numpy(x):

@@ -39,16 +39,27 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
                      tuple(torch.zeros_like(p) for p in params))
 
 
+def adam_moments_update(grads: Sequence[torch.Tensor], mu, nu, bc1, bc2,
+                        learning_rate):
+    """(updates, mu, nu): optax.adam's update from the moments mu, nu and
+    the bias corrections bc1 = 1 - b1^t, bc2 = 1 - b2^t of the new count
+    t. bc1, bc2 and learning_rate are floats, or 0-d tensors on the
+    parameters' device (a CUDA graph's inputs)."""
+    mu = tuple((1 - B1) * g + B1 * m for g, m in zip(grads, mu))
+    nu = tuple((1 - B2) * (g * g) + B2 * v for g, v in zip(grads, nu))
+    updates = tuple(-learning_rate * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
+                    for m, v in zip(mu, nu))
+    return updates, mu, nu
+
+
 def adam_update(grads: Sequence[torch.Tensor], state: AdamState,
                 learning_rate: float):
     """(updates, new state) for `grads`, as optax.adam(learning_rate)
     .update; add the updates to the parameters (optax.apply_updates)."""
-    mu = tuple((1 - B1) * g + B1 * m for g, m in zip(grads, state.mu))
-    nu = tuple((1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state.nu))
     count = state.count + 1
-    bc1, bc2 = 1 - B1 ** count, 1 - B2 ** count
-    updates = tuple(-learning_rate * ((m / bc1) / (torch.sqrt(v / bc2) + EPS))
-                    for m, v in zip(mu, nu))
+    updates, mu, nu = adam_moments_update(grads, state.mu, state.nu,
+                                          1 - B1 ** count, 1 - B2 ** count,
+                                          learning_rate)
     return updates, AdamState(count, mu, nu)
 
 

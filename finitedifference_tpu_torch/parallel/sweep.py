@@ -7,9 +7,10 @@ mesh. Here:
   the whole-trajectory kernel (csrc/gn_traj.cu, one thread block
   cluster per point): μ enters only through the per-cell source and
   inflow term;
-- the other engines run one trajectory per μ point in turn. That gives
-  vmap's results: vmap masks each point's while-loop, so every point
-  takes its own Newton or Gauss-Newton iterations.
+- the other engines and sweep_manifold run one trajectory per μ point
+  in turn. That gives vmap's results: vmap masks each point's
+  while-loop, so every point takes its own Newton or Gauss-Newton
+  iterations.
 Each returns the JAX package's shapes: (B, 2n, T+1) or (B, k, T+1). The
 port runs on one card, so the `mesh=` sharding is not ported.
 """
@@ -25,7 +26,7 @@ from finitedifference_tpu_torch.fom import (
     inviscid_burgers_implicit2d_skewed,
 )
 from finitedifference_tpu_torch.grid import Grid2D
-from finitedifference_tpu_torch.rom import ecsw_hprom, lspg_prom
+from finitedifference_tpu_torch.rom import ecsw_hprom, lspg_prom, manifold_rom
 from finitedifference_tpu_torch.rom_factored import (
     factored_hprom,
     precompute_factored_blocks,
@@ -97,6 +98,20 @@ def sweep_hprom(grid: Grid2D, smesh, sample_weights, y0, basis_aug, dt,
             mu2, **kwargs).red_coords for mu1, mu2 in points])
     raise ValueError(f"unknown engine {engine!r}; use 'generic', "
                      f"'factored' or 'pallas_traj'")
+
+
+def sweep_manifold(grid: Grid2D, y0, decode, dec_jac, dt, num_steps, mus,
+                   *, smesh=None, sample_weights=None, **kwargs):
+    """Nonlinear-manifold ROM sweep (RNM / POD-RBF / POD-GP), full or
+    hyper-reduced: one rom.manifold_rom per μ point in turn, reduced
+    coordinates (B, k, num_steps+1). smesh and sample_weights are the
+    sampled mesh and its ECSW weights (decode/dec_jac then act on the
+    augmented sampled rows); kwargs go to manifold_rom."""
+    y0 = as_tensor(y0)
+    return torch.stack([manifold_rom(
+        grid, y0, decode, dec_jac, dt, num_steps, mu1, mu2, mesh=smesh,
+        sample_weights=sample_weights, **kwargs).red_coords
+        for mu1, mu2 in _points(mus)])
 
 
 def pad_to_multiple(mus, multiple: int):

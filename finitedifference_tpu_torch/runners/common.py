@@ -13,7 +13,11 @@ read each other's files:
   closure models and their HPROM weights);
 - pod_gp_model{res_suffix}.npz and ecsw_weights_gp_{method}{res_suffix}.npy
   (the POD-GP closure model, one file for every --per-mode variant, and
-  its HPROM weights).
+  its HPROM weights);
+- rnm_model{res_suffix}.pt with its sidecar .pt.json and
+  ecsw_weights_rnm_{method}{res_suffix}.npy (the RNM network, a torch
+  state dict where the JAX runners write Flax msgpack, and its HRNM
+  weights).
 Everything runs on the CUDA device unless the caller asks for the CPU
 (`--device cpu`, `device="cpu"`); without a card, asking for it raises
 at once (device.default_device). Precision is pinned when the package is

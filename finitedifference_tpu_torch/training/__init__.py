@@ -5,7 +5,9 @@ projected training pairs (rnm_train.project_snapshots); the RBF fits
 (rbf_train: dedup, the global (epsilon x kernel) grid search, its
 cross-validated, Bayesian and anisotropic variants, the kNN (k, epsilon,
 ridge) search, SVR (on svr.py's batched libsvm solver), the .npz model
-file); the GP fits (gp_train: train_gp, save_gp, load_gp). None of them
-needs a network: the fits are deterministic linear algebra and Adam
-from zeros.
+file); the GP fits (gp_train: train_gp, save_gp, load_gp); the RNM
+network's trainer (rnm_train.train_rnm: Adam in optax's form, a plateau
+schedule, early stop) and its TrainingMonitor (monitor: best-checkpoint
+torch state dicts with JAX's JSON sidecar). Not yet: training/data and
+the autoencoder trainer.
 """

@@ -7,6 +7,7 @@ chip_smoke.py takes six).
                                  b7variants|b45variants|all]
     python3 kernel_check_gpu.py times OUT.pt
     python3 kernel_check_gpu.py diff A.pt B.pt
+    python3 kernel_check_gpu.py rnm
 
 Builds the kernels and prints the compiler's register and spill report for
 them. b1: the exact wavefront solve against its plain version on a dozen
@@ -34,7 +35,13 @@ results are never used. times: B1, B7 and B6 on COMPARE_CASES, their
 times and their outputs saved to OUT.pt; run from another checkout with
 this script and chip_smoke.py copied in, it times that checkout's
 kernels on the same inputs, and diff says which outputs of two such files
-are bit-equal. Fails without a CUDA device or on any disagreement.
+are bit-equal. rnm, no kernel of the port's own: the RNM trainer's epoch
+at the 250^2 recipe's shape (4,058 training pairs, 10 -> 140, batch 16,
+float32), eager (rnm_train._train_epoch) against the CUDA-graph replay
+train_rnm runs on the card (rnm_train._EpochGraph) from the same start
+and permutations, each epoch's time and their parameters' difference,
+then the closure's predict and jacfwd Jacobian times. Fails without a
+CUDA device or on any disagreement.
 """
 
 import re
@@ -650,16 +657,71 @@ def diff(a, b):
                   f"{rel:.3e}")
 
 
+def time_rnm(epochs=6, n=4058, n_p=10, n_s=140, batch=16):
+    """The RNM trainer's eager and graphed epochs side by side, then the
+    closure's predict and Jacobian (module docstring)."""
+    import time
+
+    from finitedifference_tpu_torch.closures import ann
+    from finitedifference_tpu_torch.training import rnm_train as rt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    q_p = 30 * torch.randn(n, n_p, generator=gen).to(dev)
+    q_s = torch.randn(n, n_s, generator=gen).to(dev)
+    eager = ann.init_rnm(n_p, n_s, device=dev)
+    graphed = ann.init_rnm(n_p, n_s, device=dev)
+    state = rt.adam_init_module(eager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = rt._EpochGraph(graphed, rt.adam_init_module(graphed), q_p, q_s,
+                           batch)
+    torch.cuda.synchronize()
+    print(f"[rnm] graph capture {time.perf_counter() - t0:.3f} s")
+    steps = n // batch
+    for e in range(epochs):
+        perm = torch.randperm(n, generator=gen).to(dev)
+        t0 = time.perf_counter()
+        state, loss_e = rt._train_epoch(eager, state, q_p, q_s, perm, batch,
+                                        1e-3)
+        loss_e = float(loss_e)
+        t1 = time.perf_counter()
+        _, loss_g = graph.run(graphed, q_p, q_s, perm, 1e-3)
+        loss_g = float(loss_g)
+        t2 = time.perf_counter()
+        diff = cs.rel_err(rt._flat(graphed)[0], rt._flat(eager)[0])
+        cs.check(diff < 1e-4 and abs(loss_g / loss_e - 1) < 1e-4,
+                 f"[rnm] epoch {e}: graphed against eager rel {diff}")
+        t_e, t_g = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        print(f"[rnm] epoch {e} ({steps} steps of {batch}): eager "
+              f"{t_e:.1f} ms ({t_e / steps:.3f} ms a step), graphed "
+              f"{t_g:.1f} ms ({t_g / steps:.3f} ms a step); loss "
+              f"{loss_e:.6e} / {loss_g:.6e}, parameters rel {diff:.1e}")
+    closure = ann.rnm_closure(graphed)
+    y = torch.randn(n_p, generator=gen, dtype=F64).to(dev)
+    for name, fn in (("predict", closure.predict),
+                     ("jacobian", closure.jacobian)):
+        for _ in range(3):
+            fn(y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn(y)
+        torch.cuda.synchronize()
+        print(f"[rnm] closure {name} (float64 state, float32 network): "
+              f"{(time.perf_counter() - t0) * 10:.3f} ms a call")
+
+
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
     modes = ("b1", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
-             "b7variants", "b45variants", "all")
+             "b7variants", "b45variants", "rnm", "all")
     if what == "diff":
         diff(sys.argv[2], sys.argv[3])
         return
     cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
              "[b1|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
-             "all] | times OUT.pt | diff A.pt B.pt")
+             "rnm|all] | times OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -668,6 +730,10 @@ def main():
     print(card)
     if what == "times":
         times(sys.argv[2])
+        print(card)
+        return
+    if what == "rnm":
+        time_rnm()
         print(card)
         return
     report_build()

@@ -96,6 +96,38 @@ def test_sweep_lspg_matches_jax():
                                atol=1e-12)
 
 
+def test_sweep_manifold_matches_jax():
+    """tests/test_parallel.py's manifold sweep: the linear decoder through
+    sweep_manifold against JAX's sweep_manifold and, point by point,
+    lspg_prom, to 1e-10 (the JAX test's bound)."""
+    from finitedifference_tpu.closures.common import (
+        manifold_decoder as jdecoder,
+    )
+    from finitedifference_tpu.rom import lspg_prom as jlspg
+    from finitedifference_tpu_torch.closures.common import manifold_decoder
+
+    jg, tg = grids(8, 8)
+    ops, xc = oracle.make_problem(nx=8, ny=8)
+    w0 = np.ones(jg.state_dim)
+    s = oracle.implicit_trajectory(w0, [4.25, 0.0225], DT, 10, ops, xc)
+    basis = np.asarray(pod(s, num_modes=5, method="svd")[0])
+    mus = np.array([[4.5, 0.02], [5.0, 0.028]])
+    y0 = basis.T @ w0
+    want = jsw.sweep_manifold(jg, jnp.asarray(y0),
+                              *jdecoder(basis, None, None), DT, 6, mus)
+    got = tsw.sweep_manifold(tg, to_torch(y0),
+                             *manifold_decoder(to_torch(basis), None, None),
+                             DT, 6, mus)
+    assert got.shape == (2, 5, 7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
+                               atol=1e-11)
+    for i in range(2):
+        lone = jlspg(jg, jnp.asarray(w0), DT, 6, mus[i, 0], mus[i, 1],
+                     jnp.asarray(basis)).red_coords
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(lone),
+                                   rtol=1e-10, atol=1e-11)
+
+
 @pytest.fixture(scope="module")
 def hprom_problem():
     """tests/test_parallel.py's 10x8 HPROM: a 6-mode basis and NNLS
@@ -140,6 +172,29 @@ def test_sweep_hprom_matches_jax(hprom_problem, engine, kw, tol):
                               ls_method="normal")
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-8,
                                    atol=1e-10)
+
+
+def test_sweep_manifold_hyper_reduced_matches_jax(hprom_problem):
+    """sweep_manifold on the sampled mesh (smesh and sample_weights passed
+    through) with the linear decoder on the augmented sampled rows,
+    against JAX's, to 1e-10."""
+    from finitedifference_tpu.closures.common import (
+        manifold_decoder as jdecoder,
+    )
+    from finitedifference_tpu_torch.closures.common import manifold_decoder
+
+    p = hprom_problem
+    want = jsw.sweep_manifold(p["jg"], jnp.asarray(p["y0"]),
+                              *jdecoder(p["jba"], None, None), DT, 6,
+                              p["mus"], smesh=p["jmesh"],
+                              sample_weights=p["jsw"])
+    got = tsw.sweep_manifold(p["tg"], to_torch(p["y0"]),
+                             *manifold_decoder(p["tba"], None, None), DT, 6,
+                             p["mus"], smesh=p["tmesh"],
+                             sample_weights=p["tsw"])
+    assert got.shape == (3, 6, 7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
+                               atol=1e-11)
 
 
 def test_sweep_pallas_traj_matches_jax_and_points():
