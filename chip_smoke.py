@@ -15,8 +15,12 @@ Phases, each printing its own lines:
    it has schedulers), in float32 and float64: error, exact zeros off
    the band, two runs bit-equal, and at the main layout both times (CUDA
    events, median of 3);
-4. the entry step: newton_step at 250^2 with a float32 state, on the card
-   against the same call on the CPU;
+4. [entry] the entry step through the port's twin of
+   __graft_entry__.entry (finitedifference_tpu_torch/entry.py): newton_step
+   at 250^2 with a float32 state, max_its 20, on the card against the same
+   step on the CPU; then B2 (the solve on unskewed fields: skew, B1's
+   kernel, unskew) against its plain version at that shape, f32 and f64:
+   error, two runs bit-equal, both times;
 5. the main path: inviscid_burgers_implicit2d_skewed at 750^2 with a
    float64 state and float32 snapshots, (a) with float32 solves and
    (b) with float64 solves; 5 warm-up steps, then 3 runs of 100 steps:
@@ -37,11 +41,14 @@ Phases, each printing its own lines:
    POD basis, then 500 steps at (4.75, 0.02) of lspg_prom and
    pallas_prom, and on the bench.py mesh (512 interior cells and the
    boundary ring) ecsw_hprom, factored_hprom and pallas_hprom (normal,
-   unroll 3 + cg, unroll 3 + fused): steps/s (median of 3), GN its/step,
+   unroll 3 + cg, unroll 3 + fused): steps/s (median of 3; the
+   host-bound lspg_prom, ecsw_hprom, factored_hprom and unroll 3 + cg
+   SLOW_REPS runs), GN its/step,
    kernel launches (equal to the kernel calls), the difference against
    the generic engine of the family and the error against the FOM;
 9. the 750^2 streaming PROM: a 95-mode basis from a 500-step 750^2 FOM
-   trajectory, pallas_prom for 500 steps and lspg_prom for 100;
+   trajectory, pallas_prom for 500 steps and lspg_prom for 100 (SLOW_REPS
+   runs);
 10. the ECSW offline recipe at 64^2: training matrix on the card, host
    NNLS (nnls_gram, rel_err_thresh 1e-4), prepare_hprom, then ecsw_hprom
    and pallas_hprom on the card against the same runs on the CPU;
@@ -64,10 +71,10 @@ Phases, each printing its own lines:
 14. [rom] pallas_traj_hprom (one launch for 500 steps) and tensor_hprom on
    the bench mesh, against ecsw_hprom and the FOM, and tensor_hprom
    against ecsw_hprom once more in float64;
-15. [sweep] the 9-point μ grid of bench.py at 250^2: sweep_hprom generic,
-   factored and pallas_traj (one launch for all 9 points) for 500 steps,
-   each point held against its own run, and sweep_fom(engine="skewed",
-   seg=8) for 100 steps: aggregate steps/s.
+15. [sweep] the 9-point μ grid of bench.py at 250^2: sweep_hprom
+   pallas_traj (one launch for all 9 points) for 500 steps, generic and
+   factored for CUT_STEPS, each point held against its own run, and
+   sweep_fom(engine="skewed", seg=8) for 100 steps: aggregate steps/s.
 16. [weights] the other weight methods at 64^2 on phase 10's training
    matrix: compute_ecsw_weights(method="ecm") (rank-800 sketch on the
    card, cubature on the host), multilevel_nnls_weights (FISTA screening
@@ -114,12 +121,28 @@ Phases, each printing its own lines:
    the training matrix's and the NNLS's times, online steps/s, GN its, the
    error against the FOM beside the JAX package's 3932-epoch records
    (finite; the validation loss must fall); then sweep_manifold of the
-   trained closure over the three canonical points, each row within
-   RNM_SWEEP_TOL of a lone manifold_rom at its point.
+   trained closure over the three canonical points for CUT_STEPS steps,
+   each row within RNM_SWEEP_TOL of a lone manifold_rom at its point.
+21. [ae] AE-LSPG through run_ae_prom at 50^2, 500 steps, latent 10 in a
+   fresh temporary directory, in the order of the JAX package's records
+   (scripts/record_ae_rows.py): at (5.19, 0.026) it trains the
+   autoencoder (the 9 training FOMs through B1, the recipe's 300 epochs
+   with patience 50, each minibatch step a CUDA graph replay) and steps a
+   float32 state; at (4.56, 0.019) and (4.75, 0.02) it loads the
+   checkpoint and steps a float64 state: seconds an epoch, epochs run, the
+   validation loss falling and its best beside JAX's sidecar, the state's
+   dtype, online steps/s, GN iterations, the B1 launches of the 12 FOMs,
+   each error under twice the JAX record (AE_LIMIT).
+22. [drivers] in [ae]'s directory, on its 50^2 FOM cache: run_tests
+   --models prom (3 FOMs and 3 PROMs, each a runner process on the card)
+   and again, skipping every key; run_tests_hprom --models hprom; every
+   point with no retry, so that a failed point fails the phase; then
+   check_derivatives on the card, every verdict OK.
 Each main path runs with the kernels' counts set to 0 just before it and
 read just after; it fails if a kernel of the path was not launched.
 
-Then one JSON line on the kernels (with each kernel's bound: the larger
+Then one JSON line on the seven kernels (B2's launches are the entry
+step's, B1's every other path's; with each kernel's bound: the larger
 of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s in f32 or
 34 TFLOP/s in f64, the H100 SXM data sheet's rates), the card line, and
 last {"ok": true, "device": {...}}. Any failure raises and exits
@@ -259,11 +282,37 @@ GP_SEARCHES = ("cv", "bayesian", "aniso", "svr")
 # trained to epoch 3932 (rnm_model.msgpack.json): RNM 1.00% at (4.75,
 # 0.02) (1.98% at (5.19, 0.026)), HRNM 2.48% at (5.19, 0.026). The errors
 # must be finite; the sweep's rows must equal lone runs
-RNM_EPOCHS = 200
+RNM_EPOCHS = 100
 RNM_MU = (4.75, 0.02)
 RNM_RECORD = {"rnm": 1.00, "hrnm": 2.48}
 RNM_SWEEP_MUS = [(5.19, 0.026), (4.56, 0.019), (4.75, 0.02)]
 RNM_SWEEP_TOL = 1e-12
+# Depth cuts that make room for [ae] and [drivers] within the script's
+# time (PERF.md §4): RNM_EPOCHS above (200 before [ae] joined); the RNM
+# sweep and its lone runs, and the generic and factored HPROM sweeps and
+# their single-point runs, take CUT_STEPS of the 500 steps (every row held
+# against a lone run of as many steps); the host-bound generic engines of
+# [rom] (lspg_prom at 250^2 and 750^2, ecsw_hprom, factored_hprom) and
+# pallas_hprom unroll3 cg (~40 steps/s) are timed SLOW_REPS times after
+# their warm-up run, not REPS
+CUT_STEPS = 100
+SLOW_REPS = 1
+# [ae]: AE-LSPG at the JAX package's record configuration (50^2, 500
+# steps, latent 10, the runner's recipe: 300 epochs, patience 50, batch
+# 16, Adam at 1e-3, seed 1234557), in the order scripts/record_ae_rows.py
+# ran it: the first point trains (a float32 online state), the other two
+# load the checkpoint (a float64 state). The JAX records
+# (rom_results_ae.npz, the JAX CPU backend) and its sidecar
+# (ae_model_50x50.msgpack.json: best validation loss 3.567e-04 at epoch
+# 94); each error must be finite and under twice the record (AE_LIMIT)
+AE_N = 50
+AE_LATENT = 10
+AE_EPOCHS = 300
+AE_MUS = [(5.19, 0.026), (4.56, 0.019), (4.75, 0.02)]
+AE_RECORD = {(5.19, 0.026): 0.4746, (4.56, 0.019): 0.4236,
+             (4.75, 0.02): 0.4129}
+AE_LIMIT = {mu: 2 * rec for mu, rec in AE_RECORD.items()}
+AE_JAX_BEST = (3.567e-04, 94)
 
 # the card's peak rates (NVIDIA H100 SXM data sheet, at 700 W): HBM, and
 # FP32 / FP64 outside the tensor cores
@@ -421,31 +470,82 @@ def phase_kernel_vs_plain(card):
 
 
 def phase_entry_step(card):
-    """newton_step at 250^2, f32 state, as the JAX entry point runs it."""
-    grid = grid_from_config(BurgersConfig())
+    """The entry step through the port's twin of __graft_entry__.entry
+    (finitedifference_tpu_torch.entry): its 250^2 float32 Newton step on
+    the card, against the same step on the CPU; then B2, the solve on
+    unskewed fields (ops/wavefront.solve_jacobian_wavefront: the skew,
+    B1's kernel, the unskew), against its plain version at the step's
+    shape. Returns (the step's B2 launches, {dtype: B2's numbers})."""
+    from finitedifference_tpu_torch.entry import entry
 
-    def step(device):
-        w0 = grid.initial_state(dtype=F32, device=device)
-        mu1 = torch.tensor(MU[0], dtype=F32, device=device)
-        mu2 = torch.tensor(MU[1], dtype=F32, device=device)
-        return newton_step(w0, mu1, mu2, BurgersConfig().dt, grid,
-                           max_its=20)
-
-    before = cw.LAUNCHES
+    step, args = entry()
+    cw.LAUNCHES = 0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gpu = step("cuda")
+    got = step(*args)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cw.LAUNCHES - before
-    cpu = step("cpu")
-    rel = rel_err(gpu.w.cpu(), cpu.w)
-    check(bool(torch.isfinite(gpu.w).all()), "entry step not finite")
+    launches = cw.LAUNCHES
+    cpu_step, cpu_args = entry(device="cpu")
+    want = cpu_step(*cpu_args)
+    rel = rel_err(got.cpu(), want)
+    check(got.dtype == F32 and bool(torch.isfinite(got).all()),
+          "entry step not finite")
     check(rel <= 1e-5, f"entry step GPU vs CPU: rel {rel}")
     check(launches > 0, "entry step launched no kernel")
-    print(f"[entry] newton_step 250x250 f32: {gpu.num_its} its "
-          f"(CPU {cpu.num_its}), {launches} kernel launches, rel vs CPU "
+    print(f"[entry] entry() newton_step 250x250 f32, max_its 20: "
+          f"{launches} B2 launches (one a Newton iteration), rel vs CPU "
           f"{rel:.3e}, {elapsed * 1e3:.1f} ms incl. first-call set-up "
           f"({card})")
+    return launches, unskewed_solve_vs_plain(card)
+
+
+def unskewed_solve_vs_plain(card):
+    """B2 at the entry step's 250^2 fields, f32 and f64: error against the
+    plain version (the same skew and unskew around
+    ops/skewed.solve_skewed_ref), two runs bit-equal, both times."""
+    from finitedifference_tpu_torch.ops.wavefront import (
+        solve_jacobian_wavefront,
+    )
+
+    grid = grid_from_config(BurgersConfig())
+    lay = sk.make_layout(grid, block=1)
+    out = {}
+    for dtype in (F32, F64):
+        rng = np.random.default_rng(7)
+        shape = (grid.ny, grid.nx)
+        args = [torch.tensor(a, dtype=dtype, device="cuda") for a in (
+            1 + rng.uniform(size=shape), 1 + rng.uniform(size=shape),
+            rng.normal(size=shape), rng.normal(size=shape))]
+
+        def plain():
+            sdu, sdv = sk.solve_skewed_ref(
+                *(sk.to_skewed(x, lay) for x in args), DT, grid, lay)
+            return sk.from_skewed(sdu, lay), sk.from_skewed(sdv, lay)
+
+        got = solve_jacobian_wavefront(*args, DT, grid)
+        again = solve_jacobian_wavefront(*args, DT, grid)
+        want = plain()
+        torch.cuda.synchronize()
+        rel = max(rel_err(g, w) for g, w in zip(got, want))
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(rel <= KERNEL_TOL[dtype], f"B2 vs plain {dtype}: rel {rel}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"B2 {dtype}: two runs differ")
+        ms = cuda_ms(lambda: solve_jacobian_wavefront(*args, DT, grid),
+                     calls=20)
+        plain_ms = cuda_ms(plain, calls=1)
+        # the function's data: four fields read, two written
+        bound_ms, bound_by = bound(6 * grid.n_cells * args[0].element_size(),
+                                   WAVEFRONT_OPS * grid.n_cells, dtype)
+        out[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[entry] B2 solve_jacobian_wavefront 250x250 "
+              f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e} vs "
+              f"plain, two runs bit-equal; {ms:.4f} ms (skew, kernel, "
+              f"unskew), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) ({card})")
+    return out
 
 
 def phase_main_path(card):
@@ -918,12 +1018,13 @@ def phase_rom_250(card, launches):
     y0 = basis.T @ w0
     steps = ROM_STEPS
 
-    def engine(label, fn, kernel=None, generic=None):
+    def engine(label, fn, kernel=None, generic=None, reps=REPS):
         return run_engine(f"{ROM_N}x{ROM_N} {label} f32", fn, kernel, steps,
-                          launches, generic, basis, hdm)
+                          launches, generic, basis, hdm, reps)
 
     prom = engine("lspg_prom normal", lambda: lspg_prom(
-        grid, w0, DT, steps, *MU, basis, ls_method="normal"))
+        grid, w0, DT, steps, *MU, basis, ls_method="normal"),
+        reps=SLOW_REPS)
     vu, vv, dmask, tr = rf.precompute_prom_pallas(grid, basis)
     engine("pallas_prom normal", lambda: rf.pallas_prom(
         grid, vu, vv, dmask, y0, DT, steps, *MU, tile_rows=tr),
@@ -943,21 +1044,22 @@ def phase_rom_250(card, launches):
           f"({MESH_INTERIOR} interior + ring at weight {RING_WEIGHT}), "
           f"{mesh.n_aug} augmented")
     hprom = engine("ecsw_hprom normal", lambda: ecsw_hprom(
-        grid, mesh, sw32, y0, ba, DT, steps, *MU, ls_method="normal"))
+        grid, mesh, sw32, y0, ba, DT, steps, *MU, ls_method="normal"),
+        reps=SLOW_REPS)
     blocks = rf.precompute_factored_blocks(mesh, ba)
     engine("factored_hprom normal", lambda: rf.factored_hprom(
         grid, mesh, sw32, y0, blocks, DT, steps, *MU, ls_method="normal"),
-        generic=hprom)
+        generic=hprom, reps=SLOW_REPS)
     p6p, wgt_p = rf.precompute_pallas_system(blocks, sw32)
-    for label, kernel, kw in (
-            ("normal", "gn_sampled_system", dict(ls_method="normal")),
+    for label, kernel, kw, reps in (
+            ("normal", "gn_sampled_system", dict(ls_method="normal"), REPS),
             ("unroll3 cg", "gn_sampled_system",
-             dict(ls_method="cg", unroll_its=3)),
+             dict(ls_method="cg", unroll_its=3), SLOW_REPS),
             ("unroll3 fused", "gn_sampled_step",
-             dict(ls_method="fused", unroll_its=3))):
+             dict(ls_method="fused", unroll_its=3), REPS)):
         engine(f"pallas_hprom {label}", lambda kw=kw: rf.pallas_hprom(
             grid, mesh, p6p, wgt_p, y0, DT, steps, *MU, **kw), kernel,
-            hprom)
+            hprom, reps)
     return dict(grid=grid, basis=basis, hdm=hdm, mesh=mesh, sw32=sw32,
                 ba=ba, p6p=p6p, wgt_p=wgt_p, y0=y0, hprom=hprom)
 
@@ -973,7 +1075,7 @@ def phase_fine_prom(card, launches):
     prom = run_engine(
         f"{FINE_N}x{FINE_N} lspg_prom normal f32", lambda: lspg_prom(
             grid, w0, DT, FINE_LSPG_STEPS, *MU, basis, ls_method="normal"),
-        None, FINE_LSPG_STEPS, launches, None, basis, hdm)
+        None, FINE_LSPG_STEPS, launches, None, basis, hdm, SLOW_REPS)
     run_engine(f"{FINE_N}x{FINE_N} pallas_prom normal f32",
                lambda: rf.pallas_prom(grid, vu, vv, dmask, y0, DT,
                                       ROM_STEPS, *MU, tile_rows=tr),
@@ -1391,11 +1493,12 @@ def phase_rom_traj(card, ctx, launches):
 
 
 def phase_sweep(card, ctx, gn_launches):
-    """The 9-point μ grid at 250^2: the HPROM sweeps for 500 steps and
-    the seg FOM sweep for 100 steps; returns the B7 launches."""
+    """The 9-point μ grid at 250^2: the HPROM sweeps (pallas_traj for 500
+    steps, generic and factored for CUT_STEPS) and the seg FOM sweep for
+    100 steps; returns the B7 launches."""
     grid, mesh, y0 = ctx["grid"], ctx["mesh"], ctx["y0"]
     sw32, ba = ctx["sw32"], ctx["ba"]
-    steps, n = ROM_STEPS, len(SWEEP_MUS)
+    n = len(SWEEP_MUS)
 
     def timed(fn):
         reset_gn_counts()
@@ -1407,7 +1510,7 @@ def phase_sweep(card, ctx, gn_launches):
 
     blocks = rf.precompute_factored_blocks(mesh, ba)
 
-    def single(engine, mu):
+    def single(engine, mu, steps):
         """The point's own run of the engine the sweep runs."""
         if engine == "pallas_traj":
             res = rf.pallas_traj_hprom(grid, mesh, ctx["p6p"], ctx["wgt_p"],
@@ -1420,10 +1523,11 @@ def phase_sweep(card, ctx, gn_launches):
                              ls_method="normal")
         return res.red_coords
 
-    for engine, kw, reps in (("generic", dict(ls_method="normal"), 1),
-                             ("factored", dict(ls_method="normal"), 1),
-                             ("pallas_traj", dict(unroll_its=3), REPS)):
-        runs = [timed(lambda kw=kw: sweep_hprom(
+    for engine, kw, reps, steps in (
+            ("generic", dict(ls_method="normal"), 1, CUT_STEPS),
+            ("factored", dict(ls_method="normal"), 1, CUT_STEPS),
+            ("pallas_traj", dict(unroll_its=3), REPS, ROM_STEPS)):
+        runs = [timed(lambda kw=kw, steps=steps: sweep_hprom(
             grid, mesh, sw32, y0, ba, DT, steps, SWEEP_MUS, engine=engine,
             **kw)) for _ in range(reps)]
         red, _, counts = runs[-1]
@@ -1439,7 +1543,7 @@ def phase_sweep(card, ctx, gn_launches):
                   f"pallas_traj sweep: launches {counts}, expected one B6")
             gn_launches["gn_traj"] += counts["gn_traj"]
             line += ", one B6 launch for all 9 points"
-        worst = max(rel_err(red[i], single(engine, mu))
+        worst = max(rel_err(red[i], single(engine, mu, steps))
                     for i, mu in enumerate(SWEEP_MUS))
         check(worst <= 1e-6, f"sweep {engine} vs single points: rel {worst}")
         print(line + f", worst rel {worst:.1e} against the {n} single-point "
@@ -1916,26 +2020,164 @@ def phase_rnm(card, tag):
     kw = dict(decode_and_jac=manifold_decoder_fused(u_p, u_s, closure),
               **rc.default_ls(DEVICE))
     y0 = u_p.T @ torch.as_tensor(w0, device=DEVICE)
-    label = f"sweep_manifold over {len(RNM_SWEEP_MUS)} points"
+    label = (f"sweep_manifold over {len(RNM_SWEEP_MUS)} points, "
+             f"{CUT_STEPS} steps")
     red, wall, counts, _ = run_runner(
         label, lambda: sweep_manifold(grid, y0, decode, dec_jac, cfg.dt,
-                                      steps, RNM_SWEEP_MUS, **kw))
+                                      CUT_STEPS, RNM_SWEEP_MUS, **kw))
     check(sum(counts.values()) == 0, f"{label}: kernels launched: {counts}")
-    check(red.shape == (len(RNM_SWEEP_MUS), 10, steps + 1)
+    check(red.shape == (len(RNM_SWEEP_MUS), 10, CUT_STEPS + 1)
           and bool(torch.isfinite(red).all()), f"{label}: {red.shape}")
     diffs = []
     for i, (m1, m2) in enumerate(RNM_SWEEP_MUS):
-        lone = manifold_rom(grid, y0, decode, dec_jac, cfg.dt, steps, m1,
-                            m2, **kw).red_coords
+        lone = manifold_rom(grid, y0, decode, dec_jac, cfg.dt, CUT_STEPS,
+                            m1, m2, **kw).red_coords
         diffs.append(rel_err(red[i], lone))
         check(diffs[-1] <= RNM_SWEEP_TOL,
               f"{label}: row {i} against the lone run: rel {diffs[-1]}")
-    print(f"{tag} {label} {RNM_SWEEP_MUS}: {len(RNM_SWEEP_MUS) * steps / wall:.2f}"
+    print(f"{tag} {label} {RNM_SWEEP_MUS}: "
+          f"{len(RNM_SWEEP_MUS) * CUT_STEPS / wall:.2f}"
           f" aggregate steps/s ({wall:.2f} s), rows against lone runs rel "
           f"{max(diffs):.1e} (limit {RNM_SWEEP_TOL:g}) ({card})")
     print(f"[rnm] phase {time.perf_counter() - t_phase:.1f} s, {phase_b1} B1 "
           f"launches")
     return phase_b1
+
+
+def phase_ae(card):
+    """[ae], in a fresh working directory: run_ae_prom at AE_MUS in
+    scripts/record_ae_rows.py's order, the first training the autoencoder
+    (the 9 training FOMs through B1), the other two loading its
+    checkpoint; then [drivers] in the same directory, on its 50^2 FOM
+    cache. Returns the phase's B1 launches (its 12 FOMs)."""
+    from finitedifference_tpu_torch.runners import common as rc
+    from finitedifference_tpu_torch.runners import run_ae_prom
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="fd_ae_")
+    home = os.getcwd()
+    os.chdir(workdir)
+    cfg = rc.default_config(AE_N)
+    steps = cfg.num_steps
+    model_path = rc.res_path(cfg, run_ae_prom.MODEL_PATH)
+    tag = f"[ae] {AE_N}x{AE_N} {steps} steps latent {AE_LATENT}"
+    phase_b1 = 0
+    try:
+        for i, mu in enumerate(AE_MUS):
+            label = (f"run_ae_prom at {mu} (" + (
+                f"trains: {AE_EPOCHS} epochs, patience 50" if i == 0
+                else "loads the checkpoint") + ")")
+            (el, err), wall, counts, out = run_runner(
+                label, run_ae_prom.main, mu1=mu[0], mu2=mu[1],
+                latent_dim=AE_LATENT, epochs=AE_EPOCHS, num_cells=AE_N)
+            gn = int(_found(r"Total GN iterations: (\d+)", out, label)[-1])
+            state = _found(r"online state: torch\.(\w+)", out, label)[-1]
+            foms = re.findall(r"Computed FOM snaps for .* in ([\d.e+-]+) s",
+                              out)
+            b1 = counts["wavefront_solve"]
+            check(sum(counts.values()) == b1,
+                  f"{label}: Gauss-Newton kernels launched: {counts}")
+            check(len(foms) == (10 if i == 0 else 1) and b1 > 0,
+                  f"{label}: {len(foms)} FOMs, {b1} B1 launches")
+            check(bool(np.isfinite(err)) and err < AE_LIMIT[mu],
+                  f"{label}: error {err}% (limit {AE_LIMIT[mu]:.4f}%)")
+            phase_b1 += b1
+            line = f"{tag} {label}: wall {wall:.2f} s"
+            if i == 0:
+                check(state == "float32", f"{label}: a {state} state")
+                ran, train_s, per_epoch = _found(
+                    r"trained (\d+) epochs in ([\d.]+) s \(([\d.]+) "
+                    r"s/epoch\)", out, label)[-1]
+                vals = [float(v) for v in _found(
+                    r"  epoch \d+: train \S+ val (\S+)", out, label)]
+                with open(model_path + ".json") as f:
+                    side = json.load(f)
+                check(len(vals) >= 2 and min(vals[1:]) < vals[0],
+                      f"{label}: the validation loss did not fall: {vals}")
+                check(side["best_crit"] == min(side["test_crits"])
+                      < side["test_crits"][0],
+                      f"{label}: the sidecar's best {side['best_crit']}")
+                line += (f"; {len(foms)} FOMs through B1 in "
+                         f"{sum(map(float, foms)):.2f} s; {ran} epochs in "
+                         f"{float(train_s):.2f} s ({float(per_epoch):.4f} "
+                         f"s/epoch), validation loss {vals[0]:.3e} (epoch "
+                         f"0) -> {vals[-1]:.3e} (the last printed), best "
+                         f"{side['best_crit']:.3e} at epoch {side['epoch']} "
+                         f"(JAX sidecar {AE_JAX_BEST[0]:.3e} at epoch "
+                         f"{AE_JAX_BEST[1]})")
+            else:
+                check(state == "float64" and "ae fit time" not in out,
+                      f"{label}: a {state} state, or it trained")
+            print(line + f"; {state} state, {steps / el:.2f} online steps/s "
+                  f"({el:.3f} s), {gn} GN its ({gn / steps:.3f}/step), "
+                  f"error vs FOM {err:.4f}% (JAX record {AE_RECORD[mu]:.2f}"
+                  f"%, limit {AE_LIMIT[mu]:.4f}%); {b1} B1 launches ({card})")
+        check(phase_b1 > 0, "[ae] launched no wavefront kernel")
+        print(f"[ae] phase {time.perf_counter() - t_phase:.1f} s, "
+              f"{phase_b1} B1 launches in its 12 FOMs")
+        phase_drivers(card)
+    finally:
+        os.chdir(home)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return phase_b1
+
+
+def phase_drivers(card):
+    """[drivers], in [ae]'s directory (its 50^2 FOM cache): run_tests
+    --models prom and a second call that must skip every key,
+    run_tests_hprom --models hprom, every point a runner process on the
+    card with no retry (a failed point fails the phase), then
+    check_derivatives on the card, every verdict OK."""
+    from finitedifference_tpu_torch.runners import (
+        check_derivatives,
+        run_tests,
+        run_tests_hprom,
+    )
+
+    t_phase = time.perf_counter()
+    tag = f"[drivers] {AE_N}x{AE_N}"
+    for label, main, model, out, n_keys in (
+            ("run_tests --models prom", run_tests.main, "prom",
+             "rom_results.npz", 6),
+            ("run_tests_hprom --models hprom", run_tests_hprom.main, "hprom",
+             "rom_results_hprom.npz", 3)):
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            results = main(models=(model,), out=out, num_cells=AE_N,
+                           retries=0)
+        wall = time.perf_counter() - t0
+        log = tee.buf.getvalue()
+        check("FAILED" not in log and len(results) == n_keys
+              and all(bool(np.isfinite(v).all()) for v in results.values()),
+              f"{label}: {sorted(results)}")
+        rows = ", ".join(f"{k} {v[0]:.3f} s / {v[1]:.2f}%"
+                         for k, v in sorted(results.items()))
+        print(f"{tag} {label}: {len(results)} points, each a runner process "
+              f"on the card, in {wall:.1f} s: {rows} ({card})")
+        if model == "prom":
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                again = main(models=(model,), out=out, num_cells=AE_N,
+                             retries=0)
+            skipped = [line for line in buf.getvalue().splitlines()
+                       if line.startswith("skipping")]
+            check(len(skipped) == 3 and "===" not in buf.getvalue()
+                  and all(np.array_equal(again[k], v)
+                          for k, v in results.items()),
+                  f"{label} again: {skipped}")
+            print(f"{tag} {label} again: skipped all {len(skipped)} model "
+                  f"keys and the 3 FOMs in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        verdicts = check_derivatives.main(device=DEVICE)
+    check(all(ok for _, _, ok in verdicts.values()),
+          f"check_derivatives: {verdicts}")
+    print(f"{tag} check_derivatives on the card in "
+          f"{time.perf_counter() - t0:.2f} s: " + ", ".join(
+              f"{name} slope {slope:.2f} min err {err:.1e} OK"
+              for name, (slope, err, _) in verdicts.items()) + f" ({card})")
+    print(f"[drivers] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_weight_methods(card, grid, basis, pairs, c):
@@ -2004,7 +2246,7 @@ def main():
     phase_build()
     kern = phase_kernel_vs_plain(card)
     seg_kern = phase_seg_kernel(card)
-    phase_entry_step(card)
+    entry_launches, b2_kern = phase_entry_step(card)
     launches, exact_final = phase_main_path(card)
     check(launches > 0, "the main path launched no wavefront kernel")
     seg_launches = phase_main_seg(card, exact_final)
@@ -2020,6 +2262,7 @@ def main():
     phase_weight_methods(card, *phase_ecsw_recipe(card, gn_launches))
     launches = phase_runners(card, launches, gn_launches)
     launches = phase_closures(card, launches)
+    launches += phase_ae(card)
     check(seg_launches > 0, "the seg paths launched no segmented kernel")
     for k, v in gn_launches.items():
         check(v > 0, f"the ROM path launched no {k} kernel")
@@ -2044,9 +2287,13 @@ def main():
     entries = [
         entry("wavefront_solve", "wavefront.cu", "pallas_wavefront.py:128",
               launches, kern[F32], {"f64": kern[F64]}),
+        entry("wavefront_solve_unskewed", "wavefront.cu",
+              "pallas_wavefront.py:36", entry_launches, b2_kern[F32],
+              {"f64": b2_kern[F64]}),
         entry("wavefront_seg", "wavefront.cu", "pallas_wavefront.py:238",
               seg_launches, seg_kern[F32], {"f64": seg_kern[F64]}),
     ]
+    entries[1]["layout"] = f"{ROM_N}x{ROM_N}"
     sources = {
         "gn_full": ("gn_full.cu", "pallas_gn_full.py:108", FINE_N),
         "gn_sampled_system": ("gn_sampled.cu", "pallas_gn.py:56", ROM_N),

@@ -25,8 +25,16 @@ Ported so far:
   the manifold decoder), rom.manifold_rom, solvers.fit_reduced_coords,
   ecsw.ecsw_training_matrix_closure, training (the RBF fits) and the
   runners run_pod_rbf_global, run_pod_rbf_hprom and run_pod_rbf;
+- the POD-GP closure ROM and the other global-RBF searches (closures/gp,
+  training/gp_train, optim, training/svr, run_pod_gp_hprom);
+- the POD-ANN closures (closures/ann, training/rnm_train, run_rnm,
+  run_hrnm, parallel/sweep.sweep_manifold);
+- AE-LSPG (closures/autoencoder, training/data, training/ae_train,
+  run_ae_prom), the regression drivers (run_tests, run_tests_hprom),
+  check_derivatives, and entry, the twin of __graft_entry__.entry;
 - convert, which carries grids, layouts, meshes, padded inputs, arrays,
-  results and the RBF closure models across from the JAX package.
+  results and the closure models and networks across from the JAX
+  package.
 Entry points run on the CUDA device unless given CPU tensors or
 device="cpu" (device.py): arrays that are not tensors never land on the
 CPU by default. Importing the package pins full-f32 matmuls (no TF32;

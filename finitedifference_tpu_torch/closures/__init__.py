@@ -11,7 +11,8 @@ fused form; `manifold_decoder` composes them with the POD blocks into the
 the global and kNN RBF closures (closures/rbf.py), the Matérn GP
 closures with their four fits (closures/gp.py) and the RNM network
 closure (closures/ann.py: RNM_NN, an nn.Module, with Flax's init and its
-jacfwd Jacobian).
+jacfwd Jacobian). closures/autoencoder.py holds the AE-LSPG ROM's full
+autoencoder, whose decoder is the whole manifold rather than a closure.
 """
 
 from finitedifference_tpu_torch.closures.common import (

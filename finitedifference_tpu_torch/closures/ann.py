@@ -32,6 +32,32 @@ HIDDEN = (32, 64, 128, 256, 256)
 TRUNC_STD = 0.87962566103423978
 
 
+def linear_stack(sizes: Sequence[int], dtype=torch.float32) -> nn.ModuleList:
+    """nn.Linear layers sizes[0] -> sizes[1] -> ... in `dtype`, on the CPU,
+    their parameters left undrawn (skip_init: no draw from PyTorch's
+    default initialisation; flax_init_ draws them)."""
+    return nn.ModuleList(nn.utils.skip_init(nn.Linear, a, b, dtype=dtype)
+                         for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+@torch.no_grad()
+def flax_init_(layers: Sequence[nn.Linear],
+               generator: torch.Generator | None = None) -> None:
+    """Flax's default Dense init of `layers`, in order: lecun_normal
+    kernels (module docstring) drawn on the CPU from `generator` (seeded
+    with 0 when None, the counterpart of JAX's default key 0), zero
+    biases."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    for layer in layers:
+        std = math.sqrt(1.0 / layer.in_features) / TRUNC_STD
+        w = torch.empty(layer.weight.shape, dtype=layer.weight.dtype)
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        layer.weight.copy_(w)
+        layer.bias.zero_()
+
+
 def rnm_apply(params: Sequence[torch.Tensor], x):
     """The MLP on x (..., q1) with params (W0, b0, W1, b1, ...) in
     nn.Linear's layout: ELU (alpha 1) after every layer but the last."""
@@ -56,27 +82,14 @@ class RNM_NN(nn.Module):
                  hidden: Sequence[int] = HIDDEN, *, dtype=torch.float32,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        sizes = (q1_size, *hidden, q2_size)
-        # skip_init: no draw from PyTorch's default initialisation
-        self.layers = nn.ModuleList(
-            nn.utils.skip_init(nn.Linear, a, b, dtype=dtype)
-            for a, b in zip(sizes[:-1], sizes[1:]))
+        self.layers = linear_stack((q1_size, *hidden, q2_size), dtype)
         self.hidden = tuple(hidden)
         self.reset_parameters(generator)
         self.to(resolve_device(device))
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Flax's default init: lecun_normal kernels, zero biases."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for layer in self.layers:
-            std = math.sqrt(1.0 / layer.in_features) / TRUNC_STD
-            w = torch.empty(layer.weight.shape, dtype=layer.weight.dtype)
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-            layer.weight.copy_(w)
-            layer.bias.zero_()
+        flax_init_(self.layers, generator)
 
     def forward(self, x):
         return rnm_apply(tuple(self.parameters()), x)

@@ -12,7 +12,8 @@ shared .npz model file (training/rbf_train.load_global_rbf); the GP
 closures' (training inputs or inducing points, alpha, length scales,
 amplitude, noise, nu, scaler) with gp_from_jax or the shared
 pod_gp_model.npz (training/gp_train.load_gp). A Flax RNM network's
-parameter tree becomes an RNM_NN with rnm_from_flax; the port's own
+parameter tree becomes an RNM_NN with rnm_from_flax, a Flax Autoencoder's
+with its standardisation a ScaledAE with ae_from_flax; the port's own
 checkpoints are torch state dicts (training/monitor.py).
 """
 
@@ -22,6 +23,10 @@ import numpy as np
 import torch
 
 from finitedifference_tpu_torch.closures.ann import RNM_NN
+from finitedifference_tpu_torch.closures.autoencoder import (
+    Autoencoder,
+    ScaledAE,
+)
 from finitedifference_tpu_torch.closures.common import MinMaxScaler
 from finitedifference_tpu_torch.closures.gp import GPModel, PerModeGPModel
 from finitedifference_tpu_torch.closures.rbf import GlobalRBF, KNNRBF
@@ -133,17 +138,41 @@ def rnm_from_flax(params, device=None) -> RNM_NN:
     dense = params["params"]
     kernels = [np.asarray(dense[f"Dense_{i}"]["kernel"])
                for i in range(len(dense))]
-    biases = [np.asarray(dense[f"Dense_{i}"]["bias"])
-              for i in range(len(dense))]
     module = RNM_NN(kernels[0].shape[0], kernels[-1].shape[1],
                     hidden=[k.shape[1] for k in kernels[:-1]],
                     dtype=getattr(torch, kernels[0].dtype.name), device="cpu")
-    state = {}
-    for i, (k, b) in enumerate(zip(kernels, biases)):
-        state[f"layers.{i}.weight"] = torch.from_numpy(k.T.copy())
-        state[f"layers.{i}.bias"] = torch.from_numpy(b.copy())
-    module.load_state_dict(state, assign=True)
+    module.load_state_dict(_dense_state(dense, "layers"), assign=True)
     return module.to(resolve_device(device))
+
+
+def _dense_state(dense, prefix):
+    """{prefix.i.weight, prefix.i.bias} from Flax's Dense_i kernels (in,
+    out), transposed to nn.Linear's (out, in), and biases."""
+    state = {}
+    for i in range(len(dense)):
+        k = np.asarray(dense[f"Dense_{i}"]["kernel"])
+        state[f"{prefix}.{i}.weight"] = torch.from_numpy(k.T.copy())
+        state[f"{prefix}.{i}.bias"] = torch.from_numpy(
+            np.asarray(dense[f"Dense_{i}"]["bias"]).copy())
+    return state
+
+
+def ae_from_flax(params, mu_in, sig_in, device=None) -> ScaledAE:
+    """A ScaledAE holding a Flax Autoencoder's parameters (each
+    params["params"]["encoder" | "decoder"]["Dense_i"] kernel, (in, out),
+    becomes that part's Linear i weight as (out, in)), in their own dtype,
+    and the standardisation mu_in, sig_in in theirs, on `device`."""
+    enc, dec = params["params"]["encoder"], params["params"]["decoder"]
+    k0 = np.asarray(enc["Dense_0"]["kernel"])
+    latent = np.asarray(enc[f"Dense_{len(enc) - 1}"]["kernel"]).shape[1]
+    module = Autoencoder(k0.shape[0], latent,
+                         dtype=getattr(torch, k0.dtype.name), device="cpu")
+    module.load_state_dict({**_dense_state(enc, "encoder.layers"),
+                            **_dense_state(dec, "decoder.layers")},
+                           assign=True)
+    return ScaledAE(module=module.to(resolve_device(device)),
+                    mu_in=to_torch(mu_in, device=device),
+                    sig_in=to_torch(sig_in, device=device))
 
 
 def _to_numpy(x):

@@ -17,7 +17,11 @@ read each other's files:
 - rnm_model{res_suffix}.pt with its sidecar .pt.json and
   ecsw_weights_rnm_{method}{res_suffix}.npy (the RNM network, a torch
   state dict where the JAX runners write Flax msgpack, and its HRNM
-  weights).
+  weights);
+- ae_model{res_suffix}.pt with its sidecar .pt.json (the autoencoder of
+  AE-LSPG, a torch state dict; the JAX runner writes .msgpack);
+- rom_results.npz and rom_results_hprom.npz (the regression drivers'
+  [seconds, error %] per model and test point).
 Everything runs on the CUDA device unless the caller asks for the CPU
 (`--device cpu`, `device="cpu"`); without a card, asking for it raises
 at once (device.default_device). Precision is pinned when the package is
@@ -363,6 +367,71 @@ def closure_ecsw_weights(cfg, grid, w0, u_p, u_s, closure, *,
     print(f"weight solve time: {time.time() - t0:.2f}s")
     np.save(weights_path, weights)
     return weights
+
+
+def run_with_retry(fn, mu, retries: int = 2, backoff_s: float = 180.0):
+    """Run one benchmark point, retrying after a failure.
+
+    fn(mu) is tried up to retries + 1 times, backoff_s apart; on repeated
+    failure (None, None), so that a regression driver records the gap and
+    goes on (the reference has no failure handling, SURVEY.md §5).
+    """
+    for attempt in range(retries + 1):
+        try:
+            return fn(mu)
+        except Exception as e:  # noqa: BLE001 — the driver must go on
+            print(f"  attempt {attempt + 1} failed: "
+                  f"{type(e).__name__}: {str(e)[:200]}")
+            if attempt == retries:
+                return None, None
+            print(f"  waiting {backoff_s:.0f}s before the next attempt")
+            time.sleep(backoff_s)
+
+
+def run_point_subproc(script: str, mu, extra_args=(), retries: int = 2,
+                      backoff_s: float = 180.0, timeout_s: float = 3600.0):
+    """Run one runner CLI in a fresh interpreter and parse its report.
+
+    The child is `python -m finitedifference_tpu_torch.runners.<script>`
+    ("run_prom.py" and "run_prom" name the same runner) at --mu1/--mu2
+    with `extra_args` (the drivers pass --device there), from the current
+    directory, with this package's root put first on its PYTHONPATH. A
+    fresh process isolates each point: a crash or a card left in a bad
+    state ends with the child. Parses the report() epilogue lines
+    ("Elapsed <name> time: X s" / "Relative error: Y%"); after retries + 1
+    failed attempts, backoff_s apart, returns (None, None).
+    """
+    import re
+    import subprocess
+    import sys
+
+    module = "finitedifference_tpu_torch.runners." + \
+        os.path.splitext(os.path.basename(script))[0]
+    cmd = [sys.executable, "-m", module,
+           "--mu1", str(mu[0]), "--mu2", str(mu[1]), *extra_args]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    for attempt in range(retries + 1):
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=timeout_s, env=env)
+            out = proc.stdout
+            print(out[-2000:], end="")
+            el = re.findall(r"Elapsed .* time: ([\d.e+-]+) s", out)
+            err = re.findall(r"Relative error: ([\d.e+-]+)%", out)
+            if proc.returncode == 0 and el and err:
+                return float(el[-1]), float(err[-1])
+            print(f"  attempt {attempt + 1} failed (rc={proc.returncode}); "
+                  f"stderr tail: {proc.stderr[-500:]}")
+        except subprocess.TimeoutExpired:
+            print(f"  attempt {attempt + 1} timed out after {timeout_s}s")
+        if attempt == retries:
+            return None, None
+        print(f"  waiting {backoff_s:.0f}s before the next attempt")
+        time.sleep(backoff_s)
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:

@@ -9,14 +9,12 @@ RNM_NN MLP: MSE, Adam in optax's form (optim.py), a plateau learning-rate
 schedule stepped once an epoch, patience early stop, best checkpointing.
 
 The JAX package jits an epoch as one lax.scan; here an epoch is a loop
-of minibatch steps on the device, one host read an epoch (the losses).
-The parameters travel through the epoch as one flat vector, so Adam's
-update is a handful of elementwise kernels a step whatever the layer
-count (elementwise, so the same bits as a per-layer update). On the CPU
-each step runs eagerly (_train_epoch); on the card train_rnm replays one
-step captured in a CUDA graph (_EpochGraph): the eager step is ~120
-small launches, 1.40-1.56 ms on an H100 machine's host, the replay
-0.19 ms (kernel_check_gpu.py rnm).
+of minibatch steps on the device over one flat parameter vector
+(training/minibatch.py), one host read an epoch (the losses). On the
+CPU each step runs eagerly (_train_epoch); on the card train_rnm
+replays one step captured in a CUDA graph (minibatch.EpochGraph): the
+eager step is ~120 small launches, 1.40-1.56 ms on an H100 machine's
+host, the replay 0.19 ms (kernel_check_gpu.py rnm).
 """
 
 from __future__ import annotations
@@ -34,13 +32,11 @@ from finitedifference_tpu_torch.closures.ann import (
     rnm_apply,
 )
 from finitedifference_tpu_torch.device import as_tensor, resolve_device
-from finitedifference_tpu_torch.optim import (
-    B1,
-    B2,
-    AdamState,
-    adam_init,
-    adam_moments_update,
-    adam_update,
+from finitedifference_tpu_torch.optim import AdamState
+from finitedifference_tpu_torch.training.minibatch import (
+    EpochGraph,
+    adam_init_flat,
+    train_epoch,
 )
 from finitedifference_tpu_torch.training.monitor import TrainingMonitor
 
@@ -63,145 +59,22 @@ def project_snapshots(basis, snaps_t, num_primary: int,
     return q_p, q_s
 
 
-def _flat(module: RNM_NN):
-    """(flat parameter vector, shapes, sizes) of the module's parameters."""
-    params = [p.detach() for p in module.parameters()]
-    return (torch.cat([p.reshape(-1) for p in params]),
-            [p.shape for p in params], [p.numel() for p in params])
-
-
-def _unflat(flat, shapes, sizes):
-    return [t.view(s) for t, s in zip(flat.split(sizes), shapes)]
-
-
-def adam_init_module(module: RNM_NN) -> AdamState:
-    """optax.adam(lr).init of the module's parameters, as one flat
-    vector (the layout _train_epoch updates)."""
-    return adam_init((_flat(module)[0],))
+def _rnm_loss(leaves, x, y):
+    """The minibatch MSE over batch and outputs."""
+    return torch.mean((rnm_apply(leaves, x) - y) ** 2)
 
 
 def _train_epoch(module: RNM_NN, opt_state: AdamState, q_p, q_s, perm,
                  batch_size: int, learning_rate: float):
-    """One epoch: the rows perm[:num_batches * batch_size] in minibatches
-    of batch_size (the rest dropped), one Adam step each at
-    learning_rate on the MSE over batch and outputs. Updates the module's
-    parameters in place; returns (opt_state, the mean of the batch losses
-    taken before each update) with the loss a 0-d tensor on the device.
+    """One epoch (minibatch.train_epoch): the rows
+    perm[:num_batches * batch_size] in minibatches of batch_size (the rest
+    dropped), one Adam step each at learning_rate on the MSE over batch
+    and outputs. Updates the module's parameters in place; returns
+    (opt_state, the mean of the batch losses taken before each update)
+    with the loss a 0-d tensor on the device.
     """
-    n = q_p.shape[0]
-    num_batches = n // batch_size
-    perm = perm[: num_batches * batch_size]
-    xb = q_p[perm].reshape(num_batches, batch_size, -1)
-    yb = q_s[perm].reshape(num_batches, batch_size, -1)
-    flat, shapes, sizes = _flat(module)
-    losses = []
-    for x, y in zip(xb, yb):
-        loss, grad = _loss_and_grad(flat, shapes, sizes, x, y)
-        (update,), opt_state = adam_update((grad,), opt_state,
-                                           learning_rate)
-        flat = flat + update
-        losses.append(loss)
-    with torch.no_grad():
-        for p, t in zip(module.parameters(), _unflat(flat, shapes, sizes)):
-            p.copy_(t)
-    return opt_state, torch.mean(torch.stack(losses))
-
-
-def _loss_and_grad(flat, shapes, sizes, x, y):
-    """The minibatch MSE at the flat parameters and its gradient, flat."""
-    leaves = [t.requires_grad_() for t in _unflat(flat, shapes, sizes)]
-    loss = torch.mean((rnm_apply(leaves, x) - y) ** 2)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
-
-
-class _EpochGraph:
-    """_train_epoch on the card, each minibatch step replayed from one CUDA
-    graph: the step of _train_epoch (the same loss, gradient and optax
-    update) on static buffers, its minibatch, bias corrections and
-    learning rate read from device tensors at a device step index. A
-    step's arithmetic is _train_epoch's but for the bias corrections,
-    divided by as tensors where the eager step divides by a Python float
-    (which PyTorch's CUDA division turns into a multiplication by its
-    reciprocal): the two differ by rounding.
-
-    Made once a training run from the module, the Adam state and the
-    training pairs' shapes; run(module, q_p, q_s, perm, learning_rate)
-    is one epoch.
-    """
-
-    def __init__(self, module: RNM_NN, opt_state: AdamState, q_p, q_s,
-                 batch_size: int):
-        dev = q_p.device
-        self.batch_size = batch_size
-        self.num_batches = q_p.shape[0] // batch_size
-        flat, self.shapes, self.sizes = _flat(module)
-        self.flat = flat.clone()
-        self.mu = opt_state.mu[0].clone()
-        self.nu = opt_state.nu[0].clone()
-        self.count = opt_state.count
-        nb, bs = self.num_batches, batch_size
-        self.xb = torch.zeros(nb, bs, q_p.shape[1], dtype=q_p.dtype,
-                              device=dev)
-        self.yb = torch.zeros(nb, bs, q_s.shape[1], dtype=q_s.dtype,
-                              device=dev)
-        self.bc = torch.ones(2, nb, dtype=flat.dtype, device=dev)
-        self.lr = torch.zeros((), dtype=flat.dtype, device=dev)
-        self.losses = torch.zeros(nb, dtype=flat.dtype, device=dev)
-        self.i = torch.zeros(1, dtype=torch.long, device=dev)
-        # warm up on a side stream (as torch.cuda.graph asks), then put
-        # the state back before the capture
-        saved = [t.clone() for t in (self.flat, self.mu, self.nu)]
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for t, v in zip((self.flat, self.mu, self.nu), saved):
-            t.copy_(v)
-        self.i.zero_()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._step()
-
-    def _step(self):
-        x = self.xb.index_select(0, self.i)[0]
-        y = self.yb.index_select(0, self.i)[0]
-        bc = self.bc.index_select(1, self.i)
-        loss, grad = _loss_and_grad(self.flat, self.shapes, self.sizes, x, y)
-        (update,), (mu,), (nu,) = adam_moments_update(
-            (grad,), (self.mu,), (self.nu,), bc[0, 0], bc[1, 0], self.lr)
-        with torch.no_grad():
-            self.mu.copy_(mu)
-            self.nu.copy_(nu)
-            self.flat.add_(update)
-            self.losses.index_copy_(0, self.i, loss.reshape(1))
-            self.i.add_(1)
-
-    def run(self, module: RNM_NN, q_p, q_s, perm, learning_rate: float):
-        """One epoch, as _train_epoch(module, state, q_p, q_s, perm,
-        batch_size, learning_rate): updates the module's parameters;
-        returns (the Adam state, the mean batch loss, a 0-d tensor)."""
-        nb, bs = self.num_batches, self.batch_size
-        perm = perm[: nb * bs]
-        self.xb.copy_(q_p[perm].reshape(nb, bs, -1))
-        self.yb.copy_(q_s[perm].reshape(nb, bs, -1))
-        counts = range(self.count + 1, self.count + nb + 1)
-        self.bc.copy_(torch.tensor([[1 - B1 ** t for t in counts],
-                                    [1 - B2 ** t for t in counts]],
-                                   dtype=torch.float64))
-        self.lr.fill_(learning_rate)
-        self.i.zero_()
-        for _ in range(nb):
-            self.graph.replay()
-        self.count += nb
-        with torch.no_grad():
-            for p, t in zip(module.parameters(),
-                            _unflat(self.flat, self.shapes, self.sizes)):
-                p.copy_(t)
-        return (AdamState(self.count, (self.mu,), (self.nu,)),
-                torch.mean(self.losses))
+    return train_epoch(_rnm_loss, module, opt_state, (q_p, q_s), perm,
+                       batch_size, learning_rate)
 
 
 @torch.no_grad()
@@ -265,13 +138,14 @@ def train_rnm(q_p, q_s, *, epochs: int = 5000, lr: float = 1e-3,
         if verbose:
             print(f"  resumed {model_path}: epoch {start_epoch}, "
                   f"best val {monitor.best_crit:.3e}, lr {lr:.2e}")
-    opt_state = adam_init_module(module)
+    opt_state = adam_init_flat(module)
     batch_size = min(batch_size, n_train)
     if device.type == "cuda":
-        graph = _EpochGraph(module, opt_state, qp_tr, qs_tr, batch_size)
+        graph = EpochGraph(_rnm_loss, module, opt_state, (qp_tr, qs_tr),
+                           batch_size)
 
         def epoch_step(state, perm_e, cur_lr):
-            return graph.run(module, qp_tr, qs_tr, perm_e, cur_lr)
+            return graph.run(module, (qp_tr, qs_tr), perm_e, cur_lr)
     else:
         def epoch_step(state, perm_e, cur_lr):
             return _train_epoch(module, state, qp_tr, qs_tr, perm_e,

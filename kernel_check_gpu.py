@@ -8,6 +8,8 @@ chip_smoke.py takes six).
     python3 kernel_check_gpu.py times OUT.pt
     python3 kernel_check_gpu.py diff A.pt B.pt
     python3 kernel_check_gpu.py rnm
+    python3 kernel_check_gpu.py ae
+    python3 kernel_check_gpu.py ae250
 
 Builds the kernels and prints the compiler's register and spill report for
 them. b1: the exact wavefront solve against its plain version on a dozen
@@ -38,16 +40,31 @@ kernels on the same inputs, and diff says which outputs of two such files
 are bit-equal. rnm, no kernel of the port's own: the RNM trainer's epoch
 at the 250^2 recipe's shape (4,058 training pairs, 10 -> 140, batch 16,
 float32), eager (rnm_train._train_epoch) against the CUDA-graph replay
-train_rnm runs on the card (rnm_train._EpochGraph) from the same start
+train_rnm runs on the card (minibatch.EpochGraph) from the same start
 and permutations, each epoch's time and their parameters' difference,
-then the closure's predict and jacfwd Jacobian times. Fails without a
-CUDA device or on any disagreement.
+then the closure's predict and jacfwd Jacobian times. ae, no kernel of
+the port's own either: the autoencoder trainer's minibatch step at the
+50^2 and 250^2 input widths (5,000 and 125,000; batch 16, float32,
+4,058 training rows of random data), eager (ae_train._train_epoch) and
+replayed from the CUDA graph train_autoencoder runs on the card
+(minibatch.EpochGraph), from the same start and permutation: ms a step,
+s an epoch, the parameters' difference, the peak device memory; then the
+decoder's and its jacfwd Jacobian's times. ae250: run_ae_prom --retrain
+at 250^2 and (4.75, 0.02) in a temporary directory (the runner's own
+lines: epochs, losses, GN iterations, the error), with each checkpoint's
+seconds and the peak device memory, then run_ae_prom on that checkpoint
+(the load path, a float64 state), the first Gauss-Newton iteration on
+that checkpoint taken apart (first_gn_step), then the training set's
+constant and nearly constant float32 columns and its mean column
+variance. Fails without a CUDA device or on any
+disagreement.
 """
 
 import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -663,6 +680,7 @@ def time_rnm(epochs=6, n=4058, n_p=10, n_s=140, batch=16):
     import time
 
     from finitedifference_tpu_torch.closures import ann
+    from finitedifference_tpu_torch.training import minibatch as mb
     from finitedifference_tpu_torch.training import rnm_train as rt
 
     dev = torch.device("cuda")
@@ -671,11 +689,11 @@ def time_rnm(epochs=6, n=4058, n_p=10, n_s=140, batch=16):
     q_s = torch.randn(n, n_s, generator=gen).to(dev)
     eager = ann.init_rnm(n_p, n_s, device=dev)
     graphed = ann.init_rnm(n_p, n_s, device=dev)
-    state = rt.adam_init_module(eager)
+    state = mb.adam_init_flat(eager)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    graph = rt._EpochGraph(graphed, rt.adam_init_module(graphed), q_p, q_s,
-                           batch)
+    graph = mb.EpochGraph(rt._rnm_loss, graphed, mb.adam_init_flat(graphed),
+                          (q_p, q_s), batch)
     torch.cuda.synchronize()
     print(f"[rnm] graph capture {time.perf_counter() - t0:.3f} s")
     steps = n // batch
@@ -686,10 +704,10 @@ def time_rnm(epochs=6, n=4058, n_p=10, n_s=140, batch=16):
                                         1e-3)
         loss_e = float(loss_e)
         t1 = time.perf_counter()
-        _, loss_g = graph.run(graphed, q_p, q_s, perm, 1e-3)
+        _, loss_g = graph.run(graphed, (q_p, q_s), perm, 1e-3)
         loss_g = float(loss_g)
         t2 = time.perf_counter()
-        diff = cs.rel_err(rt._flat(graphed)[0], rt._flat(eager)[0])
+        diff = cs.rel_err(mb.flat_params(graphed)[0], mb.flat_params(eager)[0])
         cs.check(diff < 1e-4 and abs(loss_g / loss_e - 1) < 1e-4,
                  f"[rnm] epoch {e}: graphed against eager rel {diff}")
         t_e, t_g = (t1 - t0) * 1e3, (t2 - t1) * 1e3
@@ -712,16 +730,258 @@ def time_rnm(epochs=6, n=4058, n_p=10, n_s=140, batch=16):
               f"{(time.perf_counter() - t0) * 10:.3f} ms a call")
 
 
+def time_ae(n=4058, batch=16, latent=10, eager_steps=24):
+    """The autoencoder trainer's eager and graphed steps side by side at the
+    50^2 and 250^2 input widths, then the decoder and its Jacobian
+    (module docstring)."""
+    import time
+
+    from finitedifference_tpu_torch.closures import autoencoder as tae
+    from finitedifference_tpu_torch.training import ae_train
+    from finitedifference_tpu_torch.training import minibatch as mb
+
+    dev = torch.device("cuda")
+    for dim in (5000, 125000):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator().manual_seed(0)
+        x = (1 + 0.1 * torch.randn(n, dim, generator=gen)).to(dev)
+        mu, sig = x.mean(0), x.std(0) + 1e-10
+        loss = ae_train._loss(mu, sig)
+        eager = tae.init_autoencoder(dim, latent, device=dev)
+        graphed = tae.init_autoencoder(dim, latent, device=dev)
+        n_params = sum(p.numel() for p in eager.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = mb.EpochGraph(loss, graphed, mb.adam_init_flat(graphed),
+                              (x,), batch)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        perm = torch.randperm(n, generator=gen).to(dev)
+        # eager epochs of eager_steps steps, on the rows the graph's first
+        # steps take
+        xs = x[perm[: eager_steps * batch]]
+        order = torch.arange(len(xs), device=dev)
+        state = mb.adam_init_flat(eager)
+        ae_train._train_epoch(eager, state, xs, mu, sig, order, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = ae_train._train_epoch(eager, state, xs, mu, sig, order,
+                                         batch)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / eager_steps
+        steps = n // batch
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, loss_g = graph.run(graphed, (x,), perm, 1e-3)
+            float(loss_g)
+            times.append(time.perf_counter() - t0)
+        epoch_s = sorted(times)[1]
+        cs.check(bool(torch.isfinite(loss_g)), f"[ae] {dim}: loss {loss_g}")
+        print(f"[ae] width {dim}, {n_params / 1e6:.2f} M parameters, "
+              f"{n} rows, batch {batch}: eager {eager_ms:.3f} ms a step "
+              f"({eager_steps} steps); graphed {epoch_s:.4f} s an epoch of "
+              f"{steps} steps ({epoch_s * 1e3 / steps:.3f} ms a step, median "
+              f"of 3 epochs: {', '.join(f'{t:.4f}' for t in times)}); "
+              f"capture {capture_s:.3f} s; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        # the graph's first eager_steps steps against the eager ones
+        check = tae.init_autoencoder(dim, latent, device=dev)
+        g2 = mb.EpochGraph(loss, check, mb.adam_init_flat(check), (xs,),
+                           batch)
+        g2.run(check, (xs,), order, 1e-3)
+        ref = tae.init_autoencoder(dim, latent, device=dev)
+        ae_train._train_epoch(ref, mb.adam_init_flat(ref), xs, mu, sig,
+                              order, batch)
+        diff = cs.rel_err(mb.flat_params(check)[0], mb.flat_params(ref)[0])
+        cs.check(diff < 1e-4, f"[ae] {dim}: graphed against eager {diff}")
+        print(f"[ae] width {dim}: {eager_steps} graphed steps against eager "
+              f"from one start, parameters rel {diff:.1e}")
+        scaled = tae.ScaledAE(graphed, mu, sig)
+        decode, dec_jac, _ = tae.ae_decoder_fns(scaled)
+        z = torch.randn(latent, generator=gen, dtype=torch.float64).to(dev)
+        for name, fn in (("decode", decode), ("jacfwd Jacobian", dec_jac)):
+            for _ in range(3):
+                fn(z)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn(z)
+            torch.cuda.synchronize()
+            print(f"[ae] width {dim} {name} (float64 state, float32 "
+                  f"network): {(time.perf_counter() - t0) * 20:.3f} ms a "
+                  f"call")
+        del x, xs, graph, g2, eager, graphed, check, ref, scaled
+
+
+def first_gn_step(num_cells=250, mu=(4.75, 0.02), device="cuda"):
+    """The AE ROM's first Gauss-Newton iteration at `mu` on the load path
+    (the checkpoint in the working directory, the float64 state), taken
+    apart: the residual norm along the truncated-SVD step dy for step
+    lengths 2^-k, the best of the line search's four (1 to 1/8) against
+    the start, the linear model's prediction beside each, and the decoder
+    Jacobian against central differences along dy."""
+    from finitedifference_tpu_torch.closures import autoencoder as tae
+    from finitedifference_tpu_torch.ops.stencil import (
+        burgers_residual_flat,
+        inflow_bc_term,
+        jacobian_times_basis,
+        source_term,
+    )
+    from finitedifference_tpu_torch.runners import run_ae_prom
+    from finitedifference_tpu_torch.runners.common import (
+        default_config,
+        make_problem,
+        res_path,
+    )
+    from finitedifference_tpu_torch.snapshots import collect_snapshots
+    from finitedifference_tpu_torch.solvers import lstsq_svd
+    from finitedifference_tpu_torch.training.monitor import load_checkpoint
+
+    dev = torch.device(device)
+    cfg = default_config(num_cells)
+    grid, w0 = make_problem(cfg)
+    w0 = torch.as_tensor(w0, device=dev)
+    snaps = collect_snapshots(cfg.mu_samples(), grid, w0, cfg.dt,
+                              cfg.num_steps, snap_folder=cfg.snap_folder)
+    mu_in = torch.as_tensor(snaps.T.mean(axis=0), device=dev)
+    sig_in = torch.as_tensor(snaps.T.std(axis=0) + 1e-10, device=dev)
+    del snaps
+    module = load_checkpoint(res_path(cfg, run_ae_prom.MODEL_PATH),
+                             tae.init_autoencoder(grid.state_dim, 10,
+                                                  device=dev))
+    decode, dec_jac, encode = tae.ae_decoder_fns(
+        tae.ScaledAE(module=module, mu_in=mu_in, sig_in=sig_in))
+    dt = torch.float64
+    w0 = w0.to(dt)
+    m1 = torch.tensor(mu[0], dtype=dt, device=dev)
+    m2 = torch.tensor(mu[1], dtype=dt, device=dev)
+    src = source_term(grid, m2, cfg.dt, dtype=dt, device=dev)
+    lbc = inflow_bc_term(grid, m1, cfg.dt, dtype=dt, device=dev)
+    z0 = encode(w0)
+    wp = decode(z0)
+
+    def res(w):
+        return burgers_residual_flat(w, wp, m1, m2, cfg.dt, grid, src, lbc)
+
+    f = res(wp)
+    v = dec_jac(z0)
+    jv = jacobian_times_basis(wp, v, cfg.dt, grid)
+    dy = lstsq_svd(jv, -f)
+    sv = torch.linalg.svdvals(jv)
+    rn0 = float(torch.linalg.vector_norm(f))
+    rows = []
+    for k in range(0, 25, 2):
+        a = 2.0 ** -k
+        rows.append((k, float(torch.linalg.vector_norm(res(decode(
+            z0 + a * dy)))) / rn0, float(torch.linalg.vector_norm(
+                f + a * (jv @ dy))) / rn0))
+    d = dy / torch.linalg.vector_norm(dy)
+    vd = v @ d
+    fd = {}
+    for eps in (1e-2, 1e-3, 1e-4):
+        cd = (decode(z0 + eps * d) - decode(z0 - eps * d)) / (2 * eps)
+        fd[eps] = float(torch.linalg.vector_norm(cd - vd)
+                        / torch.linalg.vector_norm(vd))
+    best = min(r[1] for r in rows if r[0] <= 3)
+    first = next((r[0] for r in rows if r[1] < 1.0), None)
+    print(f"[ae250] the first GN iteration at {mu} (load path, float64 "
+          f"state): |r| {rn0:.6e}, |z0| {float(torch.linalg.vector_norm(z0)):.4e}, "
+          f"|dy| {float(torch.linalg.vector_norm(dy)):.4e}; J V singular "
+          f"values {sv[0].item():.3e} .. {sv[-1].item():.3e}; the line "
+          f"search's best ratio (steps 1 to 1/8) {best:.6f}; the first "
+          f"2^-k below 1: k = {first}")
+    print("[ae250] |r(z0 + 2^-k dy)| / |r(z0)| (the linear model's "
+          "prediction): " + ", ".join(f"k={k} {a:.6f} ({b:.6f})"
+                                       for k, a, b in rows))
+    print("[ae250] decoder Jacobian along dy against central differences, "
+          "relative: " + ", ".join(f"eps {e:g}: {r:.2e}"
+                                   for e, r in fd.items()))
+
+
+def run_ae250():
+    """run_ae_prom --retrain at 250^2 in a temporary directory, each
+    checkpoint timed, the peak device memory (module docstring)."""
+    import os
+    import shutil
+    import tempfile
+    import time
+
+    from finitedifference_tpu_torch.runners import run_ae_prom
+    from finitedifference_tpu_torch.training.monitor import TrainingMonitor
+
+    saves = []
+    save = TrainingMonitor.save_checkpoint
+
+    def timed_save(self, module):
+        t0 = time.perf_counter()
+        save(self, module)
+        saves.append(time.perf_counter() - t0)
+
+    TrainingMonitor.save_checkpoint = timed_save
+    home, work = os.getcwd(), tempfile.mkdtemp(prefix="fd_ae250_")
+    os.chdir(work)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        elapsed, err = run_ae_prom.main(4.75, 0.02, retrain=True,
+                                        num_cells=250)
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(run_ae_prom.MODEL_PATH)
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the load path on the checkpoint just saved: a float64 state
+        t0 = time.perf_counter()
+        elapsed64, err64 = run_ae_prom.main(4.75, 0.02, num_cells=250)
+        wall64 = time.perf_counter() - t0
+        first_gn_step()
+        # the training set's float32 columns that the standardisation
+        # blows up: nearly constant, with a nonzero standard deviation
+        snaps = np.hstack([np.load(os.path.join("param_snaps", f))
+                           for f in sorted(os.listdir("param_snaps"))
+                           if f.startswith("mu1_4.25") or
+                           f.startswith("mu1_4.875") or
+                           f.startswith("mu1_5.5")]).T.astype(np.float32)
+        std = snaps.std(axis=0)
+        tiny = (std > 0) & (std < 1e-6)
+        scaled = np.abs(snaps[:, tiny] - snaps[:, tiny].mean(axis=0)) / (
+            std[tiny] + 1e-10)
+        reach = (f"reach {scaled.max():.1f}" if tiny.any()
+                 else "are none")
+    finally:
+        TrainingMonitor.save_checkpoint = save
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+    cs.check(bool(np.isfinite(err)) and bool(np.isfinite(err64)),
+             f"[ae250] {err}, {err64}")
+    print(f"[ae250] run_ae_prom --retrain --num-cells 250 at (4.75, 0.02): "
+          f"wall {wall:.1f} s, online {elapsed:.3f} s ({500 / elapsed:.2f} "
+          f"steps/s), error {err:.4f}%; {len(saves)} checkpoints of "
+          f"{size / 2**20:.1f} MiB, {sum(saves) / len(saves):.3f} s each "
+          f"(max {max(saves):.3f}, {sum(saves):.2f} s in all); peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"[ae250] run_ae_prom --num-cells 250 at (4.75, 0.02) on that "
+          f"checkpoint (float64 state): wall {wall64:.1f} s, online "
+          f"{elapsed64:.3f} s ({500 / elapsed64:.2f} steps/s), error "
+          f"{err64:.4f}%")
+    print(f"[ae250] training set {snaps.shape}: {int((std == 0).sum())} "
+          f"constant float32 columns, {int(tiny.sum())} with 0 < std < 1e-6, "
+          f"whose standardised values {reach}; the mean column variance "
+          f"(the loss of reconstructing every row as the mean) "
+          f"{float(np.mean(std.astype(np.float64) ** 2)):.6e}")
+
+
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
     modes = ("b1", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
-             "b7variants", "b45variants", "rnm", "all")
+             "b7variants", "b45variants", "rnm", "ae", "ae250", "all")
     if what == "diff":
         diff(sys.argv[2], sys.argv[3])
         return
     cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
              "[b1|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
-             "rnm|all] | times OUT.pt | diff A.pt B.pt")
+             "rnm|ae|ae250|all] | times OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -732,8 +992,8 @@ def main():
         times(sys.argv[2])
         print(card)
         return
-    if what == "rnm":
-        time_rnm()
+    if what in ("rnm", "ae", "ae250"):
+        {"rnm": time_rnm, "ae": time_ae, "ae250": run_ae250}[what]()
         print(card)
         return
     report_build()

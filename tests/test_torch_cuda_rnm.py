@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from finitedifference_tpu_torch.closures import ann
+from finitedifference_tpu_torch.training import minibatch
 from finitedifference_tpu_torch.training import monitor as tmon
 from finitedifference_tpu_torch.training import rnm_train
 
@@ -105,12 +106,12 @@ def test_train_epoch_on_card_matches_cpu(cuda, dtype):
     out = {}
     for dev in ("cpu", cuda):
         module = net(dtype, dev)
-        state = rnm_train.adam_init_module(module)
+        state = minibatch.adam_init_flat(module)
         qp = torch.tensor(q_p, dtype=dtype, device=dev)
         qs = torch.tensor(q_s, dtype=dtype, device=dev)
         _, loss = rnm_train._train_epoch(module, state, qp, qs,
                                          perm.to(dev), 16, 1e-3)
-        out[str(dev)] = (rnm_train._flat(module)[0], loss)
+        out[str(dev)] = (minibatch.flat_params(module)[0], loss)
     (p_cpu, l_cpu), (p_gpu, l_gpu) = out["cpu"], out[str(cuda)]
     assert rel(p_gpu, p_cpu) <= EPOCH_TOL[dtype]
     assert rel(l_gpu, l_cpu) <= EPOCH_TOL[dtype]
@@ -119,8 +120,8 @@ def test_train_epoch_on_card_matches_cpu(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_graphed_epochs_match_eager(cuda, dtype):
-    """Three epochs replayed from the CUDA graph (rnm_train._EpochGraph,
-    what train_rnm runs on the card) against _train_epoch on the card,
+    """Three epochs replayed from the CUDA graph (minibatch.EpochGraph on
+    the RNM loss, what train_rnm runs on the card) against _train_epoch on the card,
     from the same parameters and permutations: the same Adam counts, the
     parameters and losses within EPOCH_TOL (the graph divides by the bias
     corrections where the eager step multiplies by their reciprocals)."""
@@ -128,17 +129,19 @@ def test_graphed_epochs_match_eager(cuda, dtype):
     qp = torch.tensor(q_p, dtype=dtype, device=cuda)
     qs = torch.tensor(q_s, dtype=dtype, device=cuda)
     eager, graphed = net(dtype, cuda), net(dtype, cuda)
-    s_eager = rnm_train.adam_init_module(eager)
-    graph = rnm_train._EpochGraph(graphed, rnm_train.adam_init_module(
-        graphed), qp, qs, 16)
+    s_eager = minibatch.adam_init_flat(eager)
+    graph = minibatch.EpochGraph(rnm_train._rnm_loss, graphed,
+                                 minibatch.adam_init_flat(graphed), (qp, qs),
+                                 16)
     for e in range(3):
         perm = torch.randperm(200, generator=torch.Generator().manual_seed(
             e)).to(cuda)
         s_eager, l_eager = rnm_train._train_epoch(eager, s_eager, qp, qs,
                                                   perm, 16, 1e-3)
-        s_graph, l_graph = graph.run(graphed, qp, qs, perm, 1e-3)
+        s_graph, l_graph = graph.run(graphed, (qp, qs), perm, 1e-3)
         assert s_graph.count == s_eager.count == 12 * (e + 1)
-        assert rel(rnm_train._flat(graphed)[0], rnm_train._flat(eager)[0]) \
+        assert rel(minibatch.flat_params(graphed)[0],
+                   minibatch.flat_params(eager)[0]) \
             <= EPOCH_TOL[dtype]
         assert rel(l_graph, l_eager) <= EPOCH_TOL[dtype]
 
@@ -156,7 +159,7 @@ def test_train_rnm_on_card_matches_cpu(cuda, tmp_path):
     want, mon_w = rnm_train.train_rnm(q_p, q_s, model_path=str(
         tmp_path / "c.pt"), device="cpu", **kw)
     assert mon_g.epoch == mon_w.epoch
-    assert rel(rnm_train._flat(got)[0], rnm_train._flat(want)[0]) \
+    assert rel(minibatch.flat_params(got)[0], minibatch.flat_params(want)[0]) \
         <= TRAIN_TOL
     np.testing.assert_allclose(mon_g.test_crits, mon_w.test_crits,
                                rtol=TRAIN_TOL)

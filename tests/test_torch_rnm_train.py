@@ -34,6 +34,7 @@ from finitedifference_tpu.training import monitor as jmon
 from finitedifference_tpu.training import rnm_train as jrnm
 from finitedifference_tpu_torch import convert
 from finitedifference_tpu_torch.closures import ann as tann
+from finitedifference_tpu_torch.training import minibatch
 from finitedifference_tpu_torch.training import monitor as tmon
 from finitedifference_tpu_torch.training import rnm_train as trnm
 
@@ -144,9 +145,10 @@ def test_train_epoch_matches_jax(dtype):
     perm = np.asarray(jax.random.permutation(key, q_p.shape[0]))[:nb * bs]
     net = convert.rnm_from_flax(params, device="cpu")
     _, got_loss = trnm._train_epoch(
-        net, trnm.adam_init_module(net), to_torch(q_p), to_torch(q_s),
+        net, minibatch.adam_init_flat(net), to_torch(q_p), to_torch(q_s),
         torch.as_tensor(perm.copy()), bs, lr)
-    assert rel(trnm._flat(net)[0], flat_flax(want_p)) <= EPOCH_TOL[dtype]
+    assert rel(minibatch.flat_params(net)[0], flat_flax(want_p)) \
+        <= EPOCH_TOL[dtype]
     assert abs(float(got_loss) - float(want_loss)) \
         <= EPOCH_TOL[dtype] * abs(float(want_loss))
     got_val = trnm._eval_loss(net, to_torch(q_p), to_torch(q_s))
