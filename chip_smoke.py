@@ -18,9 +18,16 @@ Phases, each printing its own lines:
 4. [entry] the entry step through the port's twin of
    __graft_entry__.entry (finitedifference_tpu_torch/entry.py): newton_step
    at 250^2 with a float32 state, max_its 20, on the card against the same
-   step on the CPU; then B2 (the solve on unskewed fields: skew, B1's
-   kernel, unskew) against its plain version at that shape, f32 and f64:
-   error, two runs bit-equal, both times;
+   step on the CPU, its B2 launches one a Newton iteration and no B1
+   launch; then B2 (the solve on unskewed fields, one launch of
+   csrc/wavefront.cu on the (ny, nx) fields in place) at that shape, f32
+   and f64: error against its plain version, bit-equal to B1 between a
+   skew and an unskew, two runs bit-equal, the times of B2, the
+   composition and the plain version; the same checks but the times on
+   UNSKEWED_SHAPES; then the
+   standard engine (inviscid_burgers_implicit2d) at 250^2, float64, for
+   STANDARD_STEPS steps: one B2 launch a Newton iteration, no B1 launch,
+   snapshots within 1e-10 of the skewed engine's;
 5. the main path: inviscid_burgers_implicit2d_skewed at 750^2 with a
    float64 state and float32 snapshots, (a) with float32 solves and
    (b) with float64 solves; 5 warm-up steps, then 3 runs of 100 steps:
@@ -37,6 +44,8 @@ Phases, each printing its own lines:
    time a call from a CUDA graph of 50 calls, and one device kernel a
    call (torch.profiler); then B4 and B5 at 150 modes on 1000 cells,
    whose short last chunk and 63 chunks do not divide among the CTAs;
+   then [b2-kernels] one device kernel a call of B2 at 250^2, f32 and f64
+   (torch.profiler, after every other profiled phase);
 8. the 250^2 ROM path: FOM snapshots at (4.25, 0.0225), a 95-mode rSVD
    POD basis, then 500 steps at (4.75, 0.02) of lspg_prom and
    pallas_prom, and on the bench.py mesh (512 interior cells and the
@@ -142,7 +151,8 @@ Each main path runs with the kernels' counts set to 0 just before it and
 read just after; it fails if a kernel of the path was not launched.
 
 Then one JSON line on the seven kernels (B2's launches are the entry
-step's, B1's every other path's; with each kernel's bound: the larger
+step's, beside those of the standard engine's run; B1's every other
+path's; with each kernel's bound: the larger
 of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s in f32 or
 34 TFLOP/s in f64, the H100 SXM data sheet's rates), the card line, and
 last {"ok": true, "device": {...}}. Any failure raises and exits
@@ -414,6 +424,25 @@ def skewed_inputs(lay, dtype, seed):
             for a in arrs]
 
 
+def unskewed_inputs(nx, ny, dtype, seed):
+    """u, v in [1, 2] and a normal right-hand side, each (ny, nx), on the
+    card."""
+    rng = np.random.default_rng(seed)
+    shape = (ny, nx)
+    return [torch.tensor(a, dtype=dtype, device="cuda") for a in (
+        1 + rng.uniform(size=shape), 1 + rng.uniform(size=shape),
+        rng.normal(size=shape), rng.normal(size=shape))]
+
+
+def skew_b1_unskew(args, grid):
+    """B2's composition on (u, v, fu, fv): the fields skewed and padded,
+    B1's kernel, the results unskewed."""
+    lay = sk.make_layout(grid, block=1)
+    sdu, sdv = cw.solve_skewed_cuda(*(sk.to_skewed(x, lay) for x in args),
+                                    DT, grid, lay)
+    return sk.from_skewed(sdu, lay), sk.from_skewed(sdv, lay)
+
+
 # [kernel] layouts beside the main one: ny above 1024; ny far below nx (two
 # warps, one hand-off); ny far above nx (short bands through many warps); 36
 # warps over 8 CTAs (uneven); 68 warps, 9 a CTA (more than its schedulers)
@@ -472,80 +501,158 @@ def phase_kernel_vs_plain(card):
 def phase_entry_step(card):
     """The entry step through the port's twin of __graft_entry__.entry
     (finitedifference_tpu_torch.entry): its 250^2 float32 Newton step on
-    the card, against the same step on the CPU; then B2, the solve on
-    unskewed fields (ops/wavefront.solve_jacobian_wavefront: the skew,
-    B1's kernel, the unskew), against its plain version at the step's
-    shape. Returns (the step's B2 launches, {dtype: B2's numbers})."""
+    the card, against the same step on the CPU, with B2's and B1's
+    counts set to 0 just before it; then B2, the solve on unskewed
+    fields, at the step's shape and on UNSKEWED_SHAPES
+    (unskewed_solve_vs_plain), and the standard engine's trajectory
+    (standard_engine). Returns (the step's B2 launches, {dtype: B2's
+    numbers}, the standard engine's B2 launches)."""
     from finitedifference_tpu_torch.entry import entry
 
     step, args = entry()
     cw.LAUNCHES = 0
+    cw.UNSKEWED_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = step(*args)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cw.LAUNCHES
+    launches, b1_launches = cw.UNSKEWED_LAUNCHES, cw.LAUNCHES
     cpu_step, cpu_args = entry(device="cpu")
     want = cpu_step(*cpu_args)
     rel = rel_err(got.cpu(), want)
     check(got.dtype == F32 and bool(torch.isfinite(got).all()),
           "entry step not finite")
     check(rel <= 1e-5, f"entry step GPU vs CPU: rel {rel}")
-    check(launches > 0, "entry step launched no kernel")
+    check(launches > 0, "entry step launched no B2 kernel")
+    check(b1_launches == 0, f"entry step launched B1 {b1_launches} times")
     print(f"[entry] entry() newton_step 250x250 f32, max_its 20: "
-          f"{launches} B2 launches (one a Newton iteration), rel vs CPU "
-          f"{rel:.3e}, {elapsed * 1e3:.1f} ms incl. first-call set-up "
-          f"({card})")
-    return launches, unskewed_solve_vs_plain(card)
+          f"{launches} B2 launches (one a Newton iteration), {b1_launches} "
+          f"B1, rel vs CPU {rel:.3e}, {elapsed * 1e3:.1f} ms incl. "
+          f"first-call set-up ({card})")
+    numbers = unskewed_solve_vs_plain(card)
+    return launches, numbers, standard_engine(card)
+
+
+# B2's shapes (nx, ny) beside the entry step's: tiny; ny far above and far
+# below nx; the main path's 750^2; ny far above nx and no multiple of 32;
+# ny above 768 over uneven CTAs; 66 warps, 9 a CTA
+UNSKEWED_SHAPES = ((8, 6), (13, 5), (5, 40), (40, 5), (750, 750), (3, 300),
+                   (40, 1100), (20, 2100))
+STANDARD_STEPS = 20
+
+
+def unskewed_check(grid, dtype):
+    """B2 (solve_jacobian_wavefront) on one grid: within KERNEL_TOL of its
+    plain version, bit-equal to skew -> B1 -> unskew, two runs bit-equal.
+    Returns (args, rel, max_abs)."""
+    from finitedifference_tpu_torch.ops.wavefront import (
+        solve_jacobian_wavefront,
+        solve_jacobian_wavefront_ref,
+    )
+
+    nx, ny = grid.nx, grid.ny
+    args = unskewed_inputs(nx, ny, dtype, seed=nx + ny)
+    got = solve_jacobian_wavefront(*args, DT, grid)
+    again = solve_jacobian_wavefront(*args, DT, grid)
+    composed = skew_b1_unskew(args, grid)
+    want = solve_jacobian_wavefront_ref(*args, DT, grid)
+    torch.cuda.synchronize()
+    rel = max(rel_err(g, w) for g, w in zip(got, want))
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"B2 {nx}x{ny} {dtype}: not finite")
+    check(rel <= KERNEL_TOL[dtype], f"B2 vs plain {nx}x{ny} {dtype}: rel "
+          f"{rel}")
+    check(all(torch.equal(g, c) for g, c in zip(got, composed)),
+          f"B2 {nx}x{ny} {dtype}: differs from skew, B1, unskew")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"B2 {nx}x{ny} {dtype}: two runs differ")
+    return args, rel, abs_err
 
 
 def unskewed_solve_vs_plain(card):
-    """B2 at the entry step's 250^2 fields, f32 and f64: error against the
-    plain version (the same skew and unskew around
-    ops/skewed.solve_skewed_ref), two runs bit-equal, both times."""
+    """B2 at the entry step's 250^2 fields, f32 and f64 (unskewed_check),
+    and the times of B2, its composition (in turns: B2, composition,
+    composition, B2) and its plain version; then unskewed_check on
+    UNSKEWED_SHAPES. Returns {dtype: B2's numbers at 250^2}."""
     from finitedifference_tpu_torch.ops.wavefront import (
         solve_jacobian_wavefront,
+        solve_jacobian_wavefront_ref,
     )
 
     grid = grid_from_config(BurgersConfig())
-    lay = sk.make_layout(grid, block=1)
+    n = grid.nx
     out = {}
     for dtype in (F32, F64):
-        rng = np.random.default_rng(7)
-        shape = (grid.ny, grid.nx)
-        args = [torch.tensor(a, dtype=dtype, device="cuda") for a in (
-            1 + rng.uniform(size=shape), 1 + rng.uniform(size=shape),
-            rng.normal(size=shape), rng.normal(size=shape))]
+        args, rel, abs_err = unskewed_check(grid, dtype)
 
-        def plain():
-            sdu, sdv = sk.solve_skewed_ref(
-                *(sk.to_skewed(x, lay) for x in args), DT, grid, lay)
-            return sk.from_skewed(sdu, lay), sk.from_skewed(sdv, lay)
+        def b2():
+            return solve_jacobian_wavefront(*args, DT, grid)
 
-        got = solve_jacobian_wavefront(*args, DT, grid)
-        again = solve_jacobian_wavefront(*args, DT, grid)
-        want = plain()
-        torch.cuda.synchronize()
-        rel = max(rel_err(g, w) for g, w in zip(got, want))
-        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        check(rel <= KERNEL_TOL[dtype], f"B2 vs plain {dtype}: rel {rel}")
-        check(all(torch.equal(g, a) for g, a in zip(got, again)),
-              f"B2 {dtype}: two runs differ")
-        ms = cuda_ms(lambda: solve_jacobian_wavefront(*args, DT, grid),
-                     calls=20)
-        plain_ms = cuda_ms(plain, calls=1)
+        def composed():
+            return skew_b1_unskew(args, grid)
+
+        t = [cuda_ms(fn, calls=20) for fn in (b2, composed, composed, b2)]
+        plain_ms = cuda_ms(lambda: solve_jacobian_wavefront_ref(
+            *args, DT, grid), calls=1)
         # the function's data: four fields read, two written
         bound_ms, bound_by = bound(6 * grid.n_cells * args[0].element_size(),
                                    WAVEFRONT_OPS * grid.n_cells, dtype)
-        out[dtype] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        print(f"[entry] B2 solve_jacobian_wavefront 250x250 "
+        out[dtype] = dict(max_abs_err=abs_err, ms=statistics.median(
+            (t[0], t[3])), plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, composition_ms=statistics.median((t[1], t[2])))
+        print(f"[entry] B2 solve_jacobian_wavefront {n}x{n} "
               f"{str(dtype)[6:]}: rel {rel:.3e} max_abs {abs_err:.3e} vs "
-              f"plain, two runs bit-equal; {ms:.4f} ms (skew, kernel, "
-              f"unskew), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}) ({card})")
+              f"plain, bit-equal to skew -> B1 -> unskew, two runs "
+              f"bit-equal; B2 "
+              f"{t[0]:.4f} / {t[3]:.4f} ms, skew -> B1 -> unskew {t[1]:.4f} "
+              f"/ {t[2]:.4f} ms (in turns), plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({card})")
+    for nx, ny in UNSKEWED_SHAPES:
+        for dtype in (F32, F64):
+            rel = unskewed_check(Grid2D(nx=nx, ny=ny), dtype)[1]
+            print(f"[entry] B2 {nx}x{ny} {str(dtype)[6:]}: rel {rel:.3e} vs "
+                  f"plain, bit-equal to skew -> B1 -> unskew, two runs "
+                  f"bit-equal")
     return out
+
+
+def standard_engine(card):
+    """The standard engine (fom.inviscid_burgers_implicit2d, run_fom
+    --engine standard and sweep_fom's default) at 250^2 with a float64
+    state for STANDARD_STEPS steps, B2's and B1's counts set to 0 just
+    before it: one B2 launch a Newton iteration and none of B1, the
+    snapshots within 1e-10 of the skewed engine's. Returns its B2
+    launches."""
+    from finitedifference_tpu_torch.fom import inviscid_burgers_implicit2d
+
+    grid = grid_from_config(BurgersConfig())
+    w0 = grid.initial_state(dtype=F64)
+    cw.LAUNCHES = 0
+    cw.UNSKEWED_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    std = inviscid_burgers_implicit2d(grid, w0, DT, STANDARD_STEPS, *MU)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches, b1_launches = cw.UNSKEWED_LAUNCHES, cw.LAUNCHES
+    skewed = inviscid_burgers_implicit2d_skewed(grid, w0, DT, STANDARD_STEPS,
+                                                *MU)
+    rel = rel_err(std.snaps, skewed.snaps)
+    check(bool(torch.isfinite(std.snaps).all()), "standard engine not finite")
+    check(launches == std.total_newton_its > 0,
+          f"standard engine: {launches} B2 launches for "
+          f"{std.total_newton_its} Newton iterations")
+    check(b1_launches == 0, f"standard engine launched B1 {b1_launches} "
+          f"times")
+    check(rel <= 1e-10, f"standard vs skewed engine: rel {rel}")
+    print(f"[entry] standard engine {grid.nx}x{grid.ny} f64, "
+          f"{STANDARD_STEPS} steps: {std.total_newton_its} Newton its "
+          f"(skewed engine {skewed.total_newton_its}), {launches} B2 "
+          f"launches, 0 B1, snapshots vs the skewed engine rel {rel:.3e}, "
+          f"{STANDARD_STEPS / elapsed:.2f} steps/s incl. set-up ({card})")
+    return launches
 
 
 def phase_main_path(card):
@@ -771,6 +878,29 @@ def phase_gn_kernels(card):
         del ws
     phase_gn_sampled_ragged(card)
     return out
+
+
+def b2_device_kernels(card):
+    """One device kernel a call of B2 (solve_jacobian_wavefront) at the
+    entry step's 250^2 fields, f32 and f64, counted by torch.profiler
+    (device_kernels_per_call). main runs it after phase_gn_kernels: a
+    profiler session of B2 early in the process once left [gn-kernel]
+    reading 0.9 kernels a call in all its windows, a dropped event (on an
+    H100, PERF.md)."""
+    from finitedifference_tpu_torch.ops.wavefront import (
+        solve_jacobian_wavefront,
+    )
+
+    grid = grid_from_config(BurgersConfig())
+    for dtype in (F32, F64):
+        args = unskewed_inputs(grid.nx, grid.ny, dtype, seed=1)
+        per_call, kernels = device_kernels_per_call({"b2": lambda: (
+            solve_jacobian_wavefront(*args, DT, grid))})["b2"]
+        check(per_call == 1, f"B2 {dtype}: {per_call} device kernels a call "
+              f"({kernels})")
+        print(f"[b2-kernels] B2 solve_jacobian_wavefront {grid.nx}x{grid.ny} "
+              f"{str(dtype)[6:]}: {per_call:g} device kernel a call "
+              f"({kernels[0]}) ({card})")
 
 
 def graph_ms(fn, calls):
@@ -2246,12 +2376,13 @@ def main():
     phase_build()
     kern = phase_kernel_vs_plain(card)
     seg_kern = phase_seg_kernel(card)
-    entry_launches, b2_kern = phase_entry_step(card)
+    entry_launches, b2_kern, standard_launches = phase_entry_step(card)
     launches, exact_final = phase_main_path(card)
     check(launches > 0, "the main path launched no wavefront kernel")
     seg_launches = phase_main_seg(card, exact_final)
     phase_gpu_vs_cpu()
     gn_kern = phase_gn_kernels(card)
+    b2_device_kernels(card)
     gn_launches = {k: 0 for k in GN_KERNELS}
     ctx = phase_rom_250(card, gn_launches)
     traj_kern = phase_traj_kernel(card, ctx)
@@ -2278,7 +2409,8 @@ def main():
              "launches": n_launches, "library_ms": None}
         e.update({key: main[key] for key in ("max_abs_err", "ms",
                                              "plain_ms", "bound_ms",
-                                             "bound_by", "ms_device")
+                                             "bound_by", "ms_device",
+                                             "composition_ms")
                   if key in main})
         for suffix, numbers in extra.items():
             e.update({f"{key}_{suffix}": v for key, v in numbers.items()})
@@ -2294,6 +2426,7 @@ def main():
               seg_launches, seg_kern[F32], {"f64": seg_kern[F64]}),
     ]
     entries[1]["layout"] = f"{ROM_N}x{ROM_N}"
+    entries[1]["launches_standard_engine"] = standard_launches
     sources = {
         "gn_full": ("gn_full.cu", "pallas_gn_full.py:108", FINE_N),
         "gn_sampled_system": ("gn_sampled.cu", "pallas_gn.py:56", ROM_N),

@@ -1,13 +1,15 @@
 // Exact wavefront triangular solve of the CN/upwind Burgers Jacobian,
 // written by hand for Hopper (sm_90a).
 //
-// Replaces finitedifference_tpu/ops/pallas_wavefront.py::_make_kernel_reg
-// (the skewed-layout solve of the Newton loop). The unskewed entry point
-// (pallas_wavefront.py::_make_kernel behind solve_jacobian_wavefront_pallas)
-// is the same function with skew/unskew around it, so it runs this kernel
-// too (ops/wavefront.py).
+// fd_wavefront_solve_* (B1) replaces
+// finitedifference_tpu/ops/pallas_wavefront.py::_make_kernel_reg (the
+// skewed-layout solve of the Newton loop); fd_wavefront_solve_unskewed_*
+// (B2) replaces pallas_wavefront.py::_make_kernel (the same solve on the
+// unskewed (ny, nx) fields, behind solve_jacobian_wavefront_pallas). Both
+// are one kernel, wavefront_exact_kernel, that differs only in where it
+// finds a cell of its fields (SkewedFields, UnskewedFields).
 //
-// Inputs are padded skewed fields S[d, r] = X[r, d - r] of shape
+// B1's inputs are padded skewed fields S[d, r] = X[r, d - r] of shape
 // (nd_pad, ny_pad), row-major. Cell (d, r) is on the band when r < ny,
 // r <= d and d - r < nx. For each band cell, with the 2x2 block
 //   B = [[1 + kx u + ky/2 v,  ky/2 u         ],
@@ -78,6 +80,30 @@
 // What holds it now: one warp alone on its scheduler takes ~0.17 us a
 // diagonal (the dependent latency of its instructions, run in order with
 // no other warp to hide it), ~0.22 us with the hand-off.
+//
+// How B2 answers it: B2 is the same chain on the (ny, nx) fields as the
+// caller holds them (the views grid.split_fields gives), in one launch.
+// The TPU kernel skews and pads the four inputs and unskews the two outputs
+// around its solve; as eager gathers on the card that is ~40 small launches
+// and eight (nd_pad, ny_pad) temporaries, 0.7-1.3 ms at 250^2 where B1's
+// chain takes 0.11 ms. Only where the kernel finds its cells changes
+// (UnskewedFields):
+//  * lane r on diagonal d reads X[r, d - r] of its own row, on the band
+//    only; off it the lane takes an exact zero, the zeros B1 reads from the
+//    skew's padding, which the west carry of column 0 takes in. So B2 gives
+//    the bits of skew -> B1 -> unskew;
+//  * the register prefetch a block ahead keeps the loads off the chain; a
+//    lane writes its band cells of a block from its registers once the
+//    block's carries are posted, not inside the per-diagonal loop;
+//  * ceil(ny / 32) warps, offsets in 32 bits (nx * ny < 2^31).
+// What holds it: B1's chain while an SM runs one warp, as at 250^2 (0.12
+// ms f32, 0.13 ms f64 on an H100, B1's own 0.11 / 0.14). A row is
+// contiguous and a diagonal is not, so a warp's load or store touches 32
+// rows, 32 L1 wavefronts an instruction; with 3 warps an SM (750^2) those
+// outrun the chain, 0.58 ms f32 against B1's 0.34. Staging a warp's
+// block through shared memory (cp.async, 8 lanes a row) gave 0.37 at
+// 750^2 but cost 3% (f32) and 12% (f64) at 250^2, the size the entry step
+// runs; the 750^2 standard engine is reached only by asking for it.
 //
 // fd_wavefront_solve_seg_* (B7) replaces
 // finitedifference_tpu/ops/pallas_wavefront.py::_make_kernel_seg, the
@@ -318,9 +344,45 @@ __device__ __forceinline__ void post_word(unsigned addr,
       :: "r"(addr), "l"(v), "r"(bar) : "memory");
 }
 
+// Where the exact solve finds cell (d, r) = X[r, d - r] of its fields, and
+// which cells it reads and writes. at(d, r) is the cell's offset, and a
+// lane's next diagonal is `step` further on.
+//
+// B1: padded skewed arrays S[d, r] of shape (nd_pad, ny_pad). A lane reads
+// every cell of the diagonals its warp walks (the padding holds zeros) and
+// writes every cell of its column, zeros off the band, each as it is
+// solved.
+struct SkewedFields {
+  static constexpr bool kPadded = true;
+  static __device__ __forceinline__ unsigned at(int d, int r, int /*nx*/,
+                                                int ny_pad) {
+    return static_cast<unsigned>(d) * ny_pad + r;
+  }
+  static __device__ __forceinline__ unsigned step(int /*nx*/, int ny_pad) {
+    return ny_pad;
+  }
+};
+
+// B2: the (ny, nx) fields as they are, X[r, c] at r * nx + c, launched with
+// ny_pad = ny. A lane reads and writes band cells only, its results a
+// block at a time; off the band it takes an exact zero, the value of the
+// skew's padding in B1. Off the band at() may wrap, and is never
+// dereferenced there.
+struct UnskewedFields {
+  static constexpr bool kPadded = false;
+  static __device__ __forceinline__ unsigned at(int d, int r, int nx,
+                                                int /*ny_pad*/) {
+    return static_cast<unsigned>(r) * nx + static_cast<unsigned>(d - r);
+  }
+  static __device__ __forceinline__ unsigned step(int /*nx*/,
+                                                  int /*ny_pad*/) {
+    return 1;
+  }
+};
+
 // MAXW: the most warps a CTA is launched with; up to 8 leave a lane 255
-// registers
-template <typename T, int MAXW>
+// registers. Fields: SkewedFields (B1) or UnskewedFields (B2).
+template <typename T, int MAXW, typename Fields>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(32 * MAXW)
 wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
@@ -398,20 +460,25 @@ wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
       above_full = cluster_address(box->full, to);
     }
 
-    for (int d = 0; d < d_lo; ++d) {
-      if (row_ok) {
-        sdu[static_cast<size_t>(d) * ny_pad + r] = zero;
-        sdv[static_cast<size_t>(d) * ny_pad + r] = zero;
+    if constexpr (Fields::kPadded) {
+      for (int d = 0; d < d_lo; ++d) {
+        if (row_ok) {
+          sdu[static_cast<size_t>(d) * ny_pad + r] = zero;
+          sdv[static_cast<size_t>(d) * ny_pad + r] = zero;
+        }
       }
     }
+    // (d, r) on the band
+    auto on_band = [&](int d) { return r < ny && r <= d && d - r < nx; };
 
-    // inputs u, v, fu, fv at (d, r) of the kBlock diagonals from d0 on;
-    // nd_pad * ny_pad elements are far below 2^31
+    // inputs u, v, fu, fv at (d, r) of the kBlock diagonals from d0 on,
+    // into registers: B1 every cell of its column it walks, B2 band cells
     auto load_block = [&](int d0, T (&in)[4][kBlock]) {
-      unsigned at = static_cast<unsigned>(d0) * ny_pad + r;
+      unsigned at = Fields::at(d0, r, nx, ny_pad);
 #pragma unroll
-      for (int i = 0; i < kBlock; ++i, at += ny_pad) {
-        const bool ok = row_ok && d0 + i < d_hi;
+      for (int i = 0; i < kBlock; ++i, at += Fields::step(nx, ny_pad)) {
+        const bool ok = Fields::kPadded ? row_ok && d0 + i < d_hi
+                                        : on_band(d0 + i);
         in[0][i] = ok ? su[at] : zero;
         in[1][i] = ok ? sv[at] : zero;
         in[2][i] = ok ? sfu[at] : zero;
@@ -469,7 +536,7 @@ wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
       for (int i = 0; i < kBlock; ++i, at += ny_pad) {
         const int d = d0 + i;
         const T u = cur[0][i], v = cur[1][i], fu = cur[2][i], fv = cur[3][i];
-        const bool on = r < ny && r <= d && d - r < nx;
+        const bool on = on_band(d);
 
         T du_s = __shfl_up_sync(0xffffffffu, du_p, 1);
         T dv_s = __shfl_up_sync(0xffffffffu, dv_p, 1);
@@ -481,7 +548,7 @@ wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
                         dv_s, u_s, v_s, kx, ky, du, dv);
         du = on ? du : zero;
         dv = on ? dv : zero;
-        if (row_ok && d < d_hi) {
+        if (Fields::kPadded && row_ok && d < d_hi) {
           sdu[at] = du;
           sdv[at] = dv;
         }
@@ -510,6 +577,17 @@ wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
           }
         }
       }
+      // B2 writes the block's band cells once its carries are on their way
+      if constexpr (!Fields::kPadded) {
+        unsigned to = Fields::at(d0, r, nx, ny_pad);
+#pragma unroll
+        for (int i = 0; i < kBlock; ++i, to += Fields::step(nx, ny_pad)) {
+          if (on_band(d0 + i)) {
+            sdu[to] = du_b[i];
+            sdv[to] = dv_b[i];
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kBlock; ++i) {
 #pragma unroll
@@ -523,17 +601,21 @@ wavefront_exact_kernel(const T* __restrict__ su, const T* __restrict__ sv,
       for (int pb = sent > kRing ? sent - kRing : 0; pb < sent; ++pb)
         barrier_wait(my_empty + 8 * (pb % kRing), (pb / kRing) & 1);
     }
-    for (int d = d_hi; d < nd_pad; ++d) {
-      if (row_ok) {
-        sdu[static_cast<size_t>(d) * ny_pad + r] = zero;
-        sdv[static_cast<size_t>(d) * ny_pad + r] = zero;
+    if constexpr (Fields::kPadded) {
+      for (int d = d_hi; d < nd_pad; ++d) {
+        if (row_ok) {
+          sdu[static_cast<size_t>(d) * ny_pad + r] = zero;
+          sdv[static_cast<size_t>(d) * ny_pad + r] = zero;
+        }
       }
     }
   }
   cluster.sync();   // no CTA leaves while another may still write to it
 }
 
-template <typename T>
+// B1 on (nd_pad, ny_pad) skewed arrays, or B2 (UnskewedFields) on (ny, nx)
+// fields with nd_pad = nx + ny - 1 and ny_pad = ny
+template <typename T, typename Fields>
 int launch_exact(const void* su, const void* sv, const void* sfu,
                  const void* sfv, void* sdu, void* sdv, int nx, int ny,
                  int nd_pad, int ny_pad, T kx, T ky, void* stream) {
@@ -544,8 +626,8 @@ int launch_exact(const void* su, const void* sv, const void* sfu,
   const int n_warps = (ny_pad + 31) / 32;
   const int wpc = (n_warps + kCluster - 1) / kCluster;
   const size_t smem = wpc * sizeof(Mailbox<T>);
-  auto kernel = wpc <= 8 ? wavefront_exact_kernel<T, 8>
-                         : wavefront_exact_kernel<T, kMaxWarps>;
+  auto kernel = wpc <= 8 ? wavefront_exact_kernel<T, 8, Fields>
+                         : wavefront_exact_kernel<T, kMaxWarps, Fields>;
   kernel<<<kCluster, 32 * wpc, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(su), static_cast<const T*>(sv),
       static_cast<const T*>(sfu), static_cast<const T*>(sfv),
@@ -867,16 +949,40 @@ int fd_wavefront_solve_f32(const void* su, const void* sv, const void* sfu,
                            const void* sfv, void* sdu, void* sdv, int nx,
                            int ny, int nd_pad, int ny_pad, float kx, float ky,
                            void* stream) {
-  return launch_exact<float>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
-                             ny_pad, kx, ky, stream);
+  return launch_exact<float, SkewedFields>(su, sv, sfu, sfv, sdu, sdv, nx, ny,
+                                           nd_pad, ny_pad, kx, ky, stream);
 }
 
 int fd_wavefront_solve_f64(const void* su, const void* sv, const void* sfu,
                            const void* sfv, void* sdu, void* sdv, int nx,
                            int ny, int nd_pad, int ny_pad, double kx,
                            double ky, void* stream) {
-  return launch_exact<double>(su, sv, sfu, sfv, sdu, sdv, nx, ny, nd_pad,
-                              ny_pad, kx, ky, stream);
+  return launch_exact<double, SkewedFields>(su, sv, sfu, sfv, sdu, sdv, nx,
+                                            ny, nd_pad, ny_pad, kx, ky,
+                                            stream);
+}
+
+// The same solve on contiguous (ny, nx) fields u, v, fu, fv, writing the
+// contiguous (ny, nx) du, dv; ny <= 4096 and nx * ny < 2^31.
+int fd_wavefront_solve_unskewed_f32(const void* u, const void* v,
+                                    const void* fu, const void* fv, void* du,
+                                    void* dv, int nx, int ny, float kx,
+                                    float ky, void* stream) {
+  if (static_cast<long long>(nx) * ny >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_exact<float, UnskewedFields>(u, v, fu, fv, du, dv, nx, ny,
+                                             nx + ny - 1, ny, kx, ky, stream);
+}
+
+int fd_wavefront_solve_unskewed_f64(const void* u, const void* v,
+                                    const void* fu, const void* fv, void* du,
+                                    void* dv, int nx, int ny, double kx,
+                                    double ky, void* stream) {
+  if (static_cast<long long>(nx) * ny >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_exact<double, UnskewedFields>(u, v, fu, fv, du, dv, nx, ny,
+                                              nx + ny - 1, ny, kx, ky,
+                                              stream);
 }
 
 // The overlapping-segment solve: the reciprocals of the field into sinv

@@ -6,9 +6,9 @@ Counterpart of __graft_entry__.py's entry(): entry() returns
 (step, example_args), step(w, mu1, mu2) being fom.newton_step(...,
 max_its=20).w, the example a float32 uniform state at μ = (4.75, 0.02),
 on the card unless `device` asks for the CPU. On the card each Newton
-iteration's linear solve is the wavefront kernel behind
-ops/wavefront.solve_jacobian_wavefront (the skew, csrc/wavefront.cu, the
-unskew).
+iteration's linear solve is one launch of the wavefront kernel on the
+(ny, nx) fields behind ops/wavefront.solve_jacobian_wavefront
+(csrc/wavefront.cu, B2; counter cuda_wavefront.UNSKEWED_LAUNCHES).
 """
 
 from __future__ import annotations

@@ -20,9 +20,13 @@ vector op. Per-cell blocks, with k = 0.5*dt:
 
 so  delta(r,c) = B^{-1} (f(r,c) - West*delta_W - South*delta_S).
 
-The substitution itself, and skew/unskew, live in ops/skewed.py: on the
-CPU it is a plain diagonal loop, on a CUDA tensor the hand-written kernel
-of ops/cuda_wavefront.py.
+The substitution itself, and skew/unskew, live in ops/skewed.py, where
+the CPU runs it as a plain diagonal loop. On a CUDA tensor
+solve_jacobian_wavefront is one launch of the hand-written kernel of
+ops/cuda_wavefront.solve_unskewed_cuda, which walks the same diagonals on
+the (ny, nx) fields in place, with no skew or unskew;
+solve_jacobian_wavefront_ref, its plain version, skews, runs the loop and
+unskews.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.ops.cuda_wavefront import solve_unskewed_cuda
 # skew and unskew are part of this module's interface, as in the JAX package
 from finitedifference_tpu_torch.ops.skewed import (  # noqa: F401
     from_skewed,
     make_layout,
     skew,
-    solve_skewed,
+    solve_skewed_ref,
     to_skewed,
     unskew,
 )
@@ -44,22 +49,33 @@ from finitedifference_tpu_torch.ops.skewed import (  # noqa: F401
 def solve_jacobian_wavefront(u, v, fu, fv, dt, grid: Grid2D):
     """Solve J(u, v) [du; dv] = [fu; fv] exactly.
 
-    All inputs (ny, nx); returns (du, dv) each (ny, nx). The fields are
-    skewed and padded once and go through ops/skewed.solve_skewed: the
-    plain diagonal loop on the CPU, the wavefront kernel on CUDA (in the
-    inputs' dtype). No diagonal padding: both walk any number of
-    diagonals.
+    All inputs (ny, nx); returns (du, dv) each (ny, nx), in the inputs'
+    dtype. CPU tensors take solve_jacobian_wavefront_ref; every other
+    device the wavefront kernel on the fields as they are
+    (solve_unskewed_cuda: one launch, contiguous inputs of one dtype,
+    float32 or float64), which raises on what it cannot run.
     """
+    if u.device.type == "cpu":
+        return solve_jacobian_wavefront_ref(u, v, fu, fv, dt, grid)
+    return solve_unskewed_cuda(u, v, fu, fv, dt, grid)
+
+
+def solve_jacobian_wavefront_ref(u, v, fu, fv, dt, grid: Grid2D):
+    """Plain version of solve_jacobian_wavefront: the fields skewed and
+    padded once, ops/skewed.solve_skewed_ref's diagonal loop, the results
+    unskewed. No diagonal padding: the loop walks any number of
+    diagonals."""
     lay = make_layout(grid, block=1)
-    sdu, sdv = solve_skewed(*(to_skewed(x, lay) for x in (u, v, fu, fv)),
-                            dt, grid, lay)
+    sdu, sdv = solve_skewed_ref(*(to_skewed(x, lay) for x in (u, v, fu, fv)),
+                                dt, grid, lay)
     return from_skewed(sdu, lay), from_skewed(sdv, lay)
 
 
 def solve_jacobian_flat(w, f, dt, grid: Grid2D):
-    """Flat-state wrapper: solve J(w) x = f with w, f of shape (2n,)."""
-    u, v = grid.split_fields(w)
-    fu, fv = grid.split_fields(f)
+    """Flat-state wrapper: solve J(w) x = f with w, f of shape (2n,), of
+    any strides (the fields go to the solve contiguous)."""
+    u, v = grid.split_fields(w.contiguous())
+    fu, fv = grid.split_fields(f.contiguous())
     du, dv = solve_jacobian_wavefront(u, v, fu, fv, dt, grid)
     return grid.merge_fields(du, dv)
 

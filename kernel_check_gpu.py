@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Quick check and timing of the redesigned kernels B1, B3, B4, B5, B6 and
-B7 on one NVIDIA GPU, for work on their sources (a minute or two each, where
-chip_smoke.py takes six).
+"""Quick check and timing of the redesigned kernels B1 to B7 on one NVIDIA
+GPU, for work on their sources (a minute or two each, where chip_smoke.py
+takes six).
 
-    python3 kernel_check_gpu.py [b1|b3|b6|b7|b45|b6phases|b6variants|
+    python3 kernel_check_gpu.py [b1|b2|b3|b6|b7|b45|b6phases|b6variants|
                                  b7variants|b45variants|all]
     python3 kernel_check_gpu.py times OUT.pt
     python3 kernel_check_gpu.py diff A.pt B.pt
@@ -17,7 +17,11 @@ layouts (one warp, two warps, uneven CTAs, the widest), f32 and f64:
 error, exact zeros off the band, two runs bit-equal, bit-equal to the
 segment kernel with one segment, the time (CUDA events, median of 3 x 20
 calls),
-and the segment kernel's time beside it. b3: the full-grid system against
+and the segment kernel's time beside it. b2: the solve on unskewed fields
+at 250^2 and 750^2, f32 and f64, bit-equal to its composition (the skew,
+B1, the unskew), then both timed in turns, B2, composition, composition,
+B2 (CUDA events, median of 3 x 50 calls each), with B1 alone on the
+composition's skewed layout beside them. b3: the full-grid system against
 its plain version on small and ragged layouts, then at 750^2 and 250^2
 with 95 modes the time of each geometry in VARIANTS (threads of a CTA,
 CTAs per SM, largest chunk), set through cuda_gn_full.TUNING. b6: the
@@ -33,11 +37,13 @@ chip_smoke.SEG_LAYOUTS, then its time at 750^2 beside B1's. b6phases,
 b6variants and b7variants time throw-away builds of the two kernels, each
 with one phase left out or one constant changed (B6_PHASES at clusters of
 8 and 16, B6_VARIANTS, B7_VARIANTS), for PERF.md's breakdowns; their
-results are never used. times: B1, B7 and B6 on COMPARE_CASES, their
-times and their outputs saved to OUT.pt; run from another checkout with
-this script and chip_smoke.py copied in, it times that checkout's
-kernels on the same inputs, and diff says which outputs of two such files
-are bit-equal. rnm, no kernel of the port's own: the RNM trainer's epoch
+results are never used. times: B1 to B7 on COMPARE_CASES, and the entry
+step (fom.newton_step at 250^2, max_its 20, warm, with a float32 state as
+entry.entry() runs it and with a float64 one), their times and their
+outputs saved to OUT.pt; run from another checkout with this script and
+chip_smoke.py copied in, it times that checkout's kernels on the same
+inputs, and diff says which outputs of two such files are bit-equal.
+rnm, no kernel of the port's own: the RNM trainer's epoch
 at the 250^2 recipe's shape (4,058 training pairs, 10 -> 140, batch 16,
 float32), eager (rnm_train._train_epoch) against the CUDA-graph replay
 train_rnm runs on the card (minibatch.EpochGraph) from the same start
@@ -68,13 +74,16 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.config import BurgersConfig
+from finitedifference_tpu_torch.fom import newton_step
+from finitedifference_tpu_torch.grid import Grid2D, grid_from_config
 from finitedifference_tpu_torch.ops import _build, gn
 from finitedifference_tpu_torch.ops import cuda_gn as cg
 from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import gn_full as gf
 from finitedifference_tpu_torch.ops import skewed as sk
+from finitedifference_tpu_torch.ops.wavefront import solve_jacobian_wavefront
 
 F32, F64 = torch.float32, torch.float64
 DT = 0.05
@@ -200,6 +209,37 @@ def check_b1():
             *args, DT, grid, lay, n_seg=8, overlap=64), calls=50)
         print(f"[b1] segment kernel, 750x750, 8 segments, overlap 64, "
               f"{str(dtype)[6:]}: {ms:.4f} ms")
+
+
+def check_b2():
+    """B2 against its composition, bit for bit, then both timed ABBA with
+    B1 alone beside them (module docstring)."""
+    for n in (250, 750):
+        grid = Grid2D(nx=n, ny=n)
+        lay = sk.make_layout(grid, block=1)
+        for dtype in (F32, F64):
+            args = cs.unskewed_inputs(n, n, dtype, seed=n)
+            skewed = [sk.to_skewed(x, lay) for x in args]
+            got = cw.solve_unskewed_cuda(*args, DT, grid)
+            want = cs.skew_b1_unskew(args, grid)
+            torch.cuda.synchronize()
+            cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                     f"B2 {n}x{n} {dtype}: differs from skew, B1, unskew")
+
+            def b2():
+                return cw.solve_unskewed_cuda(*args, DT, grid)
+
+            def composed():
+                return cs.skew_b1_unskew(args, grid)
+
+            t = [cs.cuda_ms(fn, calls=50) for fn in (b2, composed, composed,
+                                                     b2)]
+            b1 = cs.cuda_ms(lambda: cw.solve_skewed_cuda(*skewed, DT, grid,
+                                                         lay), calls=50)
+            print(f"[b2] {n}x{n} {str(dtype)[6:]}: bit-equal to skew, B1, "
+                  f"unskew; B2 {t[0]:.4f} / {t[3]:.4f} ms, composition "
+                  f"{t[1]:.4f} / {t[2]:.4f} ms, B1 alone on the layout "
+                  f"{lay.nd_pad}x{lay.ny_pad} {b1:.4f} ms", flush=True)
 
 
 def check_b6():
@@ -363,6 +403,7 @@ def build_variant(name, source, text):
     cg._traj_kernel.cache_clear()
     cg._kernel.cache_clear()
     cw._kernel.cache_clear()
+    cw._unskewed_kernel.cache_clear()
     _build.build()
 
 
@@ -581,13 +622,18 @@ def check_b45_variants(only=()):
 
 
 # the cases `times` saves: (kernel, nx, ny, n_seg, overlap) for B1 and
+# B2 (solve_jacobian_wavefront) at the entry step's 250^2 and at 750^2;
+# the entry step's Newton solve at 250^2 (its B2 launches and the eager
+# residuals between them);
 # B7, the main path's layouts, one segment (B1's solve) and four above
 # 768 rows (ny_pad 1024, 1152, 2048, 2176); (kernel, points) for B6 at
 # the bench mesh layout
 COMPARE_CASES = [("B3", 750), ("B3", 250), ("B4", 1508, 95, 256),
                  ("B5", 1508, 95, 256), ("B4", 1000, 150, 8),
                  ("B5", 1000, 150, 8),
-                 ("B1", 750, 750, 1, 0), ("B7", 750, 750, 1, 0),
+                 ("B1", 750, 750, 1, 0), ("B2", 250), ("B2", 750),
+                 ("entry", 250),
+                 ("B7", 750, 750, 1, 0),
                  ("B7", 750, 750, 8, 64),
                  ("B7", 40, 1000, 4, 32), ("B7", 40, 1100, 4, 32),
                  ("B7", 20, 2000, 16, 8), ("B7", 20, 2100, 16, 8),
@@ -614,6 +660,26 @@ def times(out):
                 calls = 50
                 device = cs.graph_ms(fn, calls=50)
                 key = f"{case[0]} ({', '.join(map(str, case[1:]))})"
+            elif case[0] == "B2":
+                n = case[1]
+                grid = Grid2D(nx=n, ny=n)
+                args = cs.unskewed_inputs(n, n, dtype, seed=n)
+
+                def fn(args=args, grid=grid):
+                    return solve_jacobian_wavefront(*args, DT, grid)
+                calls = 50
+                key = f"B2 {n}x{n} unskewed fields"
+            elif case[0] == "entry":
+                cfg = BurgersConfig()
+                grid = grid_from_config(cfg)
+                w0 = grid.initial_state(dtype=dtype, device="cuda")
+                mu = [torch.tensor(m, dtype=dtype, device="cuda")
+                      for m in (4.75, 0.02)]
+
+                def fn(w0=w0, mu=mu, grid=grid, dt=cfg.dt):
+                    return (newton_step(w0, *mu, dt, grid, max_its=20).w,)
+                calls = 10
+                key = f"entry step newton_step {grid.nx}x{grid.ny} max_its 20"
             elif case[0] == "B6":
                 full = cs.traj_inputs(250, 95, 1508, dtype, 9)
                 args = (full[0], full[1][:case[1]].contiguous(),
@@ -974,13 +1040,13 @@ def run_ae250():
 
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    modes = ("b1", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
+    modes = ("b1", "b2", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
              "b7variants", "b45variants", "rnm", "ae", "ae250", "all")
     if what == "diff":
         diff(sys.argv[2], sys.argv[3])
         return
     cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
-             "[b1|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
+             "[b1|b2|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
              "rnm|ae|ae250|all] | times OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
@@ -1001,6 +1067,8 @@ def main():
         check_b3()
     if what in ("b1", "all"):
         check_b1()
+    if what in ("b2", "all"):
+        check_b2()
     if what in ("b45", "all"):
         check_b45()
     if what == "b45variants":

@@ -12,11 +12,15 @@ import oracle
 from finitedifference_tpu.grid import Grid2D as JGrid2D
 from finitedifference_tpu.ops import skewed as jsk
 from finitedifference_tpu.ops import wavefront as jwf
-from finitedifference_tpu.ops.pallas_wavefront import solve_skewed_pallas
+from finitedifference_tpu.ops.pallas_wavefront import (
+    solve_jacobian_wavefront_pallas,
+    solve_skewed_pallas,
+)
 from finitedifference_tpu_torch.convert import (
     grid_from_jax,
     layout_from_jax,
 )
+from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import skewed as tsk
 from finitedifference_tpu_torch.ops import wavefront as twf
 from finitedifference_tpu_torch.ops.stencil import apply_jacobian
@@ -177,3 +181,85 @@ def test_solve_inverts_own_jacobian():
     ju, jv = apply_jacobian(u, v, du, dv, DT, tg)
     np.testing.assert_allclose(ju.numpy(), fu.numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(jv.numpy(), fv.numpy(), rtol=0, atol=1e-12)
+
+
+# (nx, ny) of the unskewed solve's tests, as on the card: ny far above nx
+# and no multiple of the kernel's 32-row warps (3, 100), and ny above 768,
+# more warps than one CTA of the kernel's cluster holds (4, 800)
+UNSKEWED_SHAPES = [(8, 6), (13, 5), (5, 40), (40, 5), (3, 100), (4, 800)]
+
+
+def unskewed_inputs(nx, ny, seed, dtype):
+    """u, v in [1, 2] and a normal right-hand side, each (ny, nx)."""
+    rng = np.random.default_rng(seed)
+    return [a.astype(dtype) for a in (
+        1 + rng.uniform(size=(ny, nx)), 1 + rng.uniform(size=(ny, nx)),
+        rng.normal(size=(ny, nx)), rng.normal(size=(ny, nx)))]
+
+
+def rel_norm(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("shape", UNSKEWED_SHAPES)
+def test_unskewed_ref_f32_matches_pallas_interpret(shape):
+    """solve_jacobian_wavefront_ref, the plain version of the B2 kernel,
+    against the JAX package's B2 (solve_jacobian_wavefront_pallas in
+    interpret mode, blocks of 8 diagonals) in float32: within 1e-5 in
+    norm, the f32 tolerance of the card's kernels. The two differ in
+    rounding only: the Pallas kernel multiplies by the block inverse's
+    entries, the plain loop divides by the determinant."""
+    nx, ny = shape
+    jg, tg = grids(nx, ny)
+    arrs = unskewed_inputs(nx, ny, nx + ny, np.float32)
+    got = twf.solve_jacobian_wavefront_ref(*map(to_torch, arrs), DT, tg)
+    want = solve_jacobian_wavefront_pallas(*map(jnp.asarray, arrs), DT, jg,
+                                           block=8, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == (ny, nx)
+        assert rel_norm(g.numpy(), w) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", UNSKEWED_SHAPES)
+def test_unskewed_ref_f64_matches_lax(shape):
+    """solve_jacobian_wavefront_ref against the JAX package's lax.scan
+    solve (ops/wavefront.solve_jacobian_wavefront) in float64: within
+    1e-12 in norm, rounding only."""
+    nx, ny = shape
+    jg, tg = grids(nx, ny)
+    arrs = unskewed_inputs(nx, ny, nx * ny, np.float64)
+    got = twf.solve_jacobian_wavefront_ref(*map(to_torch, arrs), DT, tg)
+    want = jwf.solve_jacobian_wavefront(*map(jnp.asarray, arrs), DT, jg)
+    for g, w in zip(got, want):
+        assert g.dtype == F64 and tuple(g.shape) == (ny, nx)
+        assert rel_norm(g.numpy(), w) <= 1e-12
+
+
+def test_unskewed_solve_on_the_cpu_is_the_plain_version():
+    """On CPU tensors solve_jacobian_wavefront is its plain version, bit
+    for bit, and launches nothing."""
+    _, tg = grids(13, 5)
+    args = [to_torch(a) for a in unskewed_inputs(13, 5, 9, np.float64)]
+    before = (cw.LAUNCHES, cw.UNSKEWED_LAUNCHES)
+    got = twf.solve_jacobian_wavefront(*args, DT, tg)
+    want = twf.solve_jacobian_wavefront_ref(*args, DT, tg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (cw.LAUNCHES, cw.UNSKEWED_LAUNCHES) == before
+
+
+def test_unskewed_solve_off_the_cpu_never_takes_the_plain_version(
+        monkeypatch):
+    """A tensor off the CPU goes to the kernel's wrapper, which raises
+    where it cannot run (here a meta tensor): no fallback to the plain
+    version, no launch counted."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version was reached")
+
+    monkeypatch.setattr(twf, "solve_jacobian_wavefront_ref", plain)
+    _, tg = grids(8, 6)
+    meta = [torch.empty((6, 8), dtype=F64, device="meta") for _ in range(4)]
+    before = cw.UNSKEWED_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        twf.solve_jacobian_wavefront(*meta, DT, tg)
+    assert cw.UNSKEWED_LAUNCHES == before
