@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (finitedifference_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py spatial    # [spatial] alone, every visible card
 
 Phases, each printing its own lines:
 1. environment: torch/CUDA versions, the card's name and power limit,
@@ -50,14 +51,14 @@ Phases, each printing its own lines:
    POD basis, then 500 steps at (4.75, 0.02) of lspg_prom and
    pallas_prom, and on the bench.py mesh (512 interior cells and the
    boundary ring) ecsw_hprom, factored_hprom and pallas_hprom (normal,
-   unroll 3 + cg, unroll 3 + fused): steps/s (median of 3; the
-   host-bound lspg_prom, ecsw_hprom, factored_hprom and unroll 3 + cg
-   SLOW_REPS runs), GN its/step,
+   unroll 3 + cg for CUT_STEPS steps, unroll 3 + fused): steps/s (median
+   of 3; the host-bound lspg_prom, ecsw_hprom, factored_hprom and unroll
+   3 + cg SLOW_REPS runs), GN its/step,
    kernel launches (equal to the kernel calls), the difference against
    the generic engine of the family and the error against the FOM;
 9. the 750^2 streaming PROM: a 95-mode basis from a 500-step 750^2 FOM
-   trajectory, pallas_prom for 500 steps and lspg_prom for 100 (SLOW_REPS
-   runs);
+   trajectory, pallas_prom for 500 steps and lspg_prom for
+   FINE_LSPG_STEPS (SLOW_REPS runs);
 10. the ECSW offline recipe at 64^2: training matrix on the card, host
    NNLS (nnls_gram, rel_err_thresh 1e-4), prepare_hprom, then ecsw_hprom
    and pallas_hprom on the card against the same runs on the CPU;
@@ -84,24 +85,39 @@ Phases, each printing its own lines:
    pallas_traj (one launch for all 9 points) for 500 steps, generic and
    factored for CUT_STEPS, each point held against its own run, and
    sweep_fom(engine="skewed", seg=8) for 100 steps: aggregate steps/s.
-16. [weights] the other weight methods at 64^2 on phase 10's training
+16. [spatial] the multi-rank paths: run_fom --spatial-shard over one NCCL
+   rank a card at 750^2 for SPATIAL_NCCL_STEPS steps, its snapshots
+   against the unsharded skewed engine (B1) in float64; with more than
+   one card, run_sweep's card mesh against one card, bit for bit, and
+   entry.dryrun_multichip over NCCL, one rank a card; two gloo ranks
+   (sharing card 0 on one card), their halos staged through the host:
+   sharded_skewed_fom at 750^2, float64, SPATIAL_STEPS steps (within
+   SPATIAL_TOL of B1's unsharded engine, equal Newton counts; ms a step
+   and an exchange), the
+   skewed sweep_fom of SPATIAL_SWEEP_MUS at 250^2 over a dp mesh, and the
+   9-point sweep_hprom pallas_traj on [rom]'s bench mesh over the dp mesh,
+   each row bit-equal to the unsharded launch, every rank's B1 and B6
+   launch counts read back (each > 0, counted in the kernels line); then
+   entry.dryrun_multichip(4) over four gloo ranks (dp 2 x sp 2, each
+   phase against its unsharded twin).
+17. [weights] the other weight methods at 64^2 on phase 10's training
    matrix: compute_ecsw_weights(method="ecm") (rank-800 sketch on the
    card, cubature on the host), multilevel_nnls_weights (FISTA screening
    on the card), sequential_nnls_weights, and lawson_hanson_weights_device
    on a float32 training matrix built on the card: N_e, the training
    residual (each must reach 1e-4) and the time;
-17. [runners] the users' workflow through the runner main()s at 250^2 and
+18. [runners] the users' workflow through the runner main()s at 250^2 and
    the runners' defaults in a fresh temporary directory: run_fom at (5.19,
    0.026), run_prom --engine generic (building the 9-trajectory basis)
    then pallas, run_hprom --compute-ecsw --weights-method nnls --engine
    generic then pallas (on the saved weights), run_sweep --model hprom
-   over the 3x3 grid: wall time, steps/s, Newton / GN iterations, N_e, the
-   weight solve time and the error against the FOM beside the JAX
-   package's records; B1 launched in run_fom and the basis build, B3 in
-   run_prom pallas, B4 in run_hprom pallas; the PROM error under 2%, the
-   HPROM's under 3%, each kernel engine within ENGINE_TOL of its generic
-   engine.
-18. [closures] the POD-RBF closure ROMs through the runner main()s at
+   over the 3x3 grid for CUT_STEPS steps: wall time, steps/s, Newton / GN
+   iterations, N_e, the weight solve time and the error against the FOM
+   beside the JAX package's records; B1 launched in run_fom and the basis
+   build, B3 in run_prom pallas, B4 in run_hprom pallas; the PROM error
+   under 2%, the HPROM's under 3%, each kernel engine within ENGINE_TOL of
+   its generic engine.
+19. [closures] the POD-RBF closure ROMs through the runner main()s at
    250^2, 500 steps, (5.19, 0.026) and 10 + 140 modes in a fresh
    temporary directory: run_pod_rbf_global (the 150-mode basis from the 9
    training FOMs through B1, the (epsilon x kernel) grid-search fit on the
@@ -114,7 +130,7 @@ Phases, each printing its own lines:
    the times of the closure training matrix and the NNLS, the B1
    launches; each error finite and, but for the kNN HPROM's two witness
    runs, under twice the JAX record (CLOSURE_LIMIT).
-19. [gp] in [closures]' directory, on its basis and snapshot cache:
+20. [gp] in [closures]' directory, on its basis and snapshot cache:
    run_pod_gp_hprom --compute-ecsw (the shared-kernel ARD GP, noise 1e-6)
    and --retrain --per-mode full --compute-ecsw (one ARD GP per secondary
    mode): the GP fit's time, amplitudes and length scales, N_e, the
@@ -122,7 +138,7 @@ Phases, each printing its own lines:
    error under twice the JAX record (GP_LIMIT); then run_pod_rbf_global
    --search cv, bayesian, aniso and svr: the fit's time and choice, the
    PROM error (finite; no JAX record at 250^2).
-20. [rnm] in the same directory, on its basis and snapshot cache: run_rnm
+21. [rnm] in the same directory, on its basis and snapshot cache: run_rnm
    --retrain at (4.75, 0.02) on all 4,509 projected pairs for RNM_EPOCHS
    of the recipe's 5000 epochs (batch 16), then run_hrnm --compute-ecsw at
    (5.19, 0.026) on the checkpoint it saved: the seconds an epoch, the
@@ -132,7 +148,7 @@ Phases, each printing its own lines:
    (finite; the validation loss must fall); then sweep_manifold of the
    trained closure over the three canonical points for CUT_STEPS steps,
    each row within RNM_SWEEP_TOL of a lone manifold_rom at its point.
-21. [ae] AE-LSPG through run_ae_prom at 50^2, 500 steps, latent 10 in a
+22. [ae] AE-LSPG through run_ae_prom at 50^2, 500 steps, latent 10 in a
    fresh temporary directory, in the order of the JAX package's records
    (scripts/record_ae_rows.py): at (5.19, 0.026) it trains the
    autoencoder (the 9 training FOMs through B1, the recipe's 300 epochs
@@ -142,13 +158,15 @@ Phases, each printing its own lines:
    validation loss falling and its best beside JAX's sidecar, the state's
    dtype, online steps/s, GN iterations, the B1 launches of the 12 FOMs,
    each error under twice the JAX record (AE_LIMIT).
-22. [drivers] in [ae]'s directory, on its 50^2 FOM cache: run_tests
-   --models prom (3 FOMs and 3 PROMs, each a runner process on the card)
-   and again, skipping every key; run_tests_hprom --models hprom; every
-   point with no retry, so that a failed point fails the phase; then
+23. [drivers] in [ae]'s directory, on its 50^2 FOM cache, at the
+   DRIVER_POINTS of the three test points: run_tests --models prom (a FOM
+   and a PROM a point, each a runner process on the card) and again,
+   skipping every key; run_tests_hprom --models hprom; every point with
+   no retry, so that a failed point fails the phase; then
    check_derivatives on the card, every verdict OK.
 Each main path runs with the kernels' counts set to 0 just before it and
-read just after; it fails if a kernel of the path was not launched.
+read just after (in each rank's process for [spatial]); it fails if a
+kernel of the path was not launched.
 
 Then one JSON line on the seven kernels (B2's launches are the entry
 step's, beside those of the standard engine's run; B1's every other
@@ -177,7 +195,7 @@ import torch
 
 from finitedifference_tpu_torch import rom_factored as rf
 from finitedifference_tpu_torch import rom_tensor as rt
-from finitedifference_tpu_torch.config import BurgersConfig
+from finitedifference_tpu_torch.config import TEST_POINTS, BurgersConfig
 from finitedifference_tpu_torch.ecsw import (
     compute_ecsw_weights,
     ecsw_training_matrix,
@@ -223,7 +241,7 @@ FINE_N = 750
 RECIPE_N = 64
 MODES = 95
 ROM_STEPS = 500
-FINE_LSPG_STEPS = 100
+FINE_LSPG_STEPS = 20
 MU_TRAIN = (4.25, 0.0225)
 MESH_INTERIOR = 512        # bench.py:424-431: random interior cells
 RING_WEIGHT = 50.0         # and the boundary ring at the fixed weight
@@ -243,6 +261,20 @@ TRAJ_STEPS = 50
 SWEEP_MUS = [(m1, m2) for m1 in (4.4, 4.9, 5.4) for m2 in (0.016, 0.022,
                                                            0.028)]
 SWEEP_FOM_STEPS = 100
+# [spatial]: the multi-rank paths. One NCCL rank a card runs run_fom
+# --spatial-shard at 750^2; two gloo ranks share card 0 for the sharded
+# skewed trajectory (float64, against B1's unsharded engine), the FOM
+# sweep and the whole-trajectory sweep; four gloo ranks run
+# entry.dryrun_multichip(4)
+SPATIAL_N = 750
+SPATIAL_STEPS = 3
+SPATIAL_NCCL_STEPS = 2
+SPATIAL_TOL = 1e-12
+SPATIAL_SWEEP_MUS = SWEEP_MUS[:2]
+SPATIAL_SWEEP_STEPS = 20
+SPATIAL_GLOO_RANKS = 2
+SPATIAL_DRYRUN_RANKS = 4
+SPATIAL_TIMEOUT = 300.0
 
 # the users' workflow through the runners (README): 250^2, the runners'
 # defaults, at the first canonical test point; the JAX package's records
@@ -304,9 +336,14 @@ RNM_SWEEP_TOL = 1e-12
 # against a lone run of as many steps); the host-bound generic engines of
 # [rom] (lspg_prom at 250^2 and 750^2, ecsw_hprom, factored_hprom) and
 # pallas_hprom unroll3 cg (~40 steps/s) are timed SLOW_REPS times after
-# their warm-up run, not REPS
+# their warm-up run, not REPS. To make room for [spatial]: pallas_hprom
+# unroll3 cg and [runners]' run_sweep --model hprom take CUT_STEPS steps,
+# the 750^2 lspg_prom FINE_LSPG_STEPS, and [drivers]' run_tests and
+# run_tests_hprom run at DRIVER_POINTS, the first of the three test
+# points (each point is a runner process, mostly its start-up)
 CUT_STEPS = 100
 SLOW_REPS = 1
+DRIVER_POINTS = TEST_POINTS[:1]
 # [ae]: AE-LSPG at the JAX package's record configuration (50^2, 500
 # steps, latent 10, the runner's recipe: 300 epochs, patience 50, batch
 # 16, Adam at 1e-3, seed 1234557), in the order scripts/record_ae_rows.py
@@ -1090,8 +1127,9 @@ def run_engine(label, fn, kernel, steps, launches, generic=None,
         line += (f", {counts[kernel]} {kernel} launches per run "
                  f"(= its {res.total_gn_its} + stopping checks)")
     if generic is not None:
-        cols = generic.red_coords.shape[1]
-        diff = rel_err(res.red_coords[:, :cols], generic.red_coords)
+        cols = min(generic.red_coords.shape[1], steps + 1)
+        diff = rel_err(res.red_coords[:, :cols],
+                       generic.red_coords[:, :cols])
         check(diff < ENGINE_TOL, f"{label}: rel {diff} vs generic engine")
         line += f", rel vs generic engine {diff:.3e}"
     if hdm is not None:
@@ -1138,6 +1176,24 @@ def rom_basis(grid, card, solve_dtype=None):
     return basis, hdm
 
 
+def bench_mesh(grid, basis):
+    """bench.py's HPROM mesh on the ROM_N^2 grid: MESH_INTERIOR random
+    interior cells and the boundary ring at RING_WEIGHT; (mesh, f32
+    weights, augmented basis)."""
+    rng = np.random.default_rng(0)
+    weights = np.zeros(grid.n_cells)
+    interior = np.zeros((ROM_N, ROM_N), dtype=bool)
+    interior[1:-1, 1:-1] = True
+    weights[rng.choice(np.flatnonzero(interior.ravel()), MESH_INTERIOR,
+                       replace=False)] = 1.0
+    weights[~interior.ravel()] = RING_WEIGHT
+    mesh, sw, ba = prepare_hprom(grid, weights, basis)
+    print(f"[rom] {ROM_N}x{ROM_N} mesh: {mesh.n_sample} sampled cells "
+          f"({MESH_INTERIOR} interior + ring at weight {RING_WEIGHT}), "
+          f"{mesh.n_aug} augmented")
+    return mesh, sw.to(F32), ba
+
+
 def phase_rom_250(card, launches):
     """The 250^2 PROM and HPROM engines at the test point; returns what
     the later phases reuse: the grid, basis, FOM snapshots, bench mesh,
@@ -1161,18 +1217,7 @@ def phase_rom_250(card, launches):
         "gn_full", prom)
     del vu, vv
 
-    rng = np.random.default_rng(0)
-    weights = np.zeros(grid.n_cells)
-    interior = np.zeros((ROM_N, ROM_N), dtype=bool)
-    interior[1:-1, 1:-1] = True
-    weights[rng.choice(np.flatnonzero(interior.ravel()), MESH_INTERIOR,
-                       replace=False)] = 1.0
-    weights[~interior.ravel()] = RING_WEIGHT
-    mesh, sw, ba = prepare_hprom(grid, weights, basis)
-    sw32 = sw.to(F32)
-    print(f"[rom] {ROM_N}x{ROM_N} mesh: {mesh.n_sample} sampled cells "
-          f"({MESH_INTERIOR} interior + ring at weight {RING_WEIGHT}), "
-          f"{mesh.n_aug} augmented")
+    mesh, sw32, ba = bench_mesh(grid, basis)
     hprom = engine("ecsw_hprom normal", lambda: ecsw_hprom(
         grid, mesh, sw32, y0, ba, DT, steps, *MU, ls_method="normal"),
         reps=SLOW_REPS)
@@ -1181,22 +1226,24 @@ def phase_rom_250(card, launches):
         grid, mesh, sw32, y0, blocks, DT, steps, *MU, ls_method="normal"),
         generic=hprom, reps=SLOW_REPS)
     p6p, wgt_p = rf.precompute_pallas_system(blocks, sw32)
-    for label, kernel, kw, reps in (
-            ("normal", "gn_sampled_system", dict(ls_method="normal"), REPS),
+    for label, kernel, kw, reps, n in (
+            ("normal", "gn_sampled_system", dict(ls_method="normal"), REPS,
+             steps),
             ("unroll3 cg", "gn_sampled_system",
-             dict(ls_method="cg", unroll_its=3), SLOW_REPS),
+             dict(ls_method="cg", unroll_its=3), SLOW_REPS, CUT_STEPS),
             ("unroll3 fused", "gn_sampled_step",
-             dict(ls_method="fused", unroll_its=3), REPS)):
-        engine(f"pallas_hprom {label}", lambda kw=kw: rf.pallas_hprom(
-            grid, mesh, p6p, wgt_p, y0, DT, steps, *MU, **kw), kernel,
-            hprom, reps)
+             dict(ls_method="fused", unroll_its=3), REPS, steps)):
+        run_engine(f"{ROM_N}x{ROM_N} pallas_hprom {label} f32",
+                   lambda kw=kw, n=n: rf.pallas_hprom(
+                       grid, mesh, p6p, wgt_p, y0, DT, n, *MU, **kw),
+                   kernel, n, launches, hprom, basis, hdm, reps)
     return dict(grid=grid, basis=basis, hdm=hdm, mesh=mesh, sw32=sw32,
                 ba=ba, p6p=p6p, wgt_p=wgt_p, y0=y0, hprom=hprom)
 
 
 def phase_fine_prom(card, launches):
     """The 750^2 streaming PROM (the case B3 was written for) against
-    the generic LSPG PROM over its first 100 steps."""
+    the generic LSPG PROM over its first FINE_LSPG_STEPS steps."""
     grid = Grid2D(nx=FINE_N, ny=FINE_N)
     basis, hdm = rom_basis(grid, card, solve_dtype=F32)
     w0 = torch.ones(grid.state_dim, dtype=F32, device=DEVICE)
@@ -1704,6 +1751,208 @@ def phase_sweep(card, ctx, gn_launches):
 
 
 # ----------------------------------------------------------------------
+# [spatial]: the multi-rank paths over torch.distributed
+# ----------------------------------------------------------------------
+
+def _spatial_ranks(bench):
+    """One of the SPATIAL_GLOO_RANKS gloo ranks (rank r on card r % the
+    cards; on one card they share it): the
+    sharded skewed trajectory at 750^2 (float64, SPATIAL_STEPS steps; its
+    seconds and halo exchanges), then over a dp mesh the skewed FOM sweep
+    of SPATIAL_SWEEP_MUS at 250^2 and the 9-point whole-trajectory sweep
+    on the [rom] bench mesh, each with this rank's B1 and B6 launch counts
+    set to 0 just before and read just after; every rank's counts are
+    gathered."""
+    from finitedifference_tpu_torch.ops.sampled import SampledMesh
+    from finitedifference_tpu_torch.parallel import mesh as pm
+    from finitedifference_tpu_torch.parallel.spatial import (
+        sharded_skewed_fom,
+    )
+    from finitedifference_tpu_torch.parallel.sweep import (
+        make_sweep_mesh,
+        pad_to_multiple,
+    )
+
+    dev = pm.rank_device()
+    sp = pm.make_mesh((SPATIAL_GLOO_RANKS,), ("sp",))
+    dp = make_sweep_mesh()
+    grid = Grid2D(nx=SPATIAL_N, ny=SPATIAL_N)
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=dev)
+    torch.cuda.synchronize()
+    exchanges, t0 = pm.EXCHANGES, time.perf_counter()
+    snaps, its = sharded_skewed_fom(sp, grid, w0, DT, SPATIAL_STEPS, *MU)
+    torch.cuda.synchronize()
+    skewed = (snaps, its, time.perf_counter() - t0,
+              pm.EXCHANGES - exchanges)
+
+    g = Grid2D(nx=ROM_N, ny=ROM_N)
+    cw.LAUNCHES = 0
+    fom = sweep_fom(g, torch.ones(g.state_dim, dtype=F64, device=dev), DT,
+                    SPATIAL_SWEEP_STEPS, SPATIAL_SWEEP_MUS, mesh=dp,
+                    engine="skewed")
+    b1 = cw.LAUNCHES
+    mesh = SampledMesh(*(t.to(dev) for t in bench["mesh"]))
+    mus, _ = pad_to_multiple(np.asarray(SWEEP_MUS), SPATIAL_GLOO_RANKS)
+    cg.TRAJ_LAUNCHES = 0
+    traj = sweep_hprom(g, mesh, bench["sw32"].to(dev), bench["y0"].to(dev),
+                       bench["ba"].to(dev), DT, ROM_STEPS, mus, mesh=dp,
+                       engine="pallas_traj", unroll_its=3)
+    b6 = cg.TRAJ_LAUNCHES
+    counts = pm.all_gather(torch.tensor([[b1, b6]], device=dev), dp, "dp")
+    return dict(skewed=skewed, fom=fom, traj=traj, counts=counts)
+
+
+def spatial_cards(card, n_cards):
+    """[spatial] on more than one card, over NCCL, one rank a card:
+    run_sweep's card mesh (its 3x3 FOM sweep at 250^2, f32 snapshots,
+    padded to a multiple of the cards) against the same sweep on card 0,
+    bit for bit, then entry.dryrun_multichip(n_cards)."""
+    from finitedifference_tpu_torch.entry import dryrun_multichip
+    from finitedifference_tpu_torch.parallel.sweep import pad_to_multiple
+    from finitedifference_tpu_torch.runners import run_sweep
+    from finitedifference_tpu_torch.runners.common import (
+        default_config,
+        make_problem,
+    )
+
+    cfg = default_config(ROM_N, SPATIAL_SWEEP_STEPS)
+    mus = np.array([[m1, m2] for m1 in np.linspace(*cfg.mu1_range, 3)
+                    for m2 in np.linspace(*cfg.mu2_range, 3)])
+    padded, n_real = pad_to_multiple(mus, n_cards)
+    t0 = time.perf_counter()
+    el, got = run_sweep._run_sharded(n_cards, padded, n_real, "fom", MODES,
+                                     cfg, True, "skewed",
+                                     timeout=SPATIAL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    grid, w0 = make_problem(cfg)
+    one = sweep_fom(grid, torch.as_tensor(w0, dtype=F32, device=DEVICE),
+                    cfg.dt, SPATIAL_SWEEP_STEPS, padded, engine="skewed",
+                    snaps_dtype=F32)
+    check(torch.equal(got.to(DEVICE), one),
+          f"run_sweep over {n_cards} cards differs from one card")
+    print(f"[spatial] {ROM_N}x{ROM_N} run_sweep --model fom over {n_cards} "
+          f"NCCL ranks, one a card: {n_real} points padded to "
+          f"{len(padded)} x {SPATIAL_SWEEP_STEPS} steps in {el:.2f} s "
+          f"({wall:.1f} s with the ranks' start), bit-equal to the sweep "
+          f"on card 0 ({card})")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(n_cards, device=DEVICE, timeout=SPATIAL_TIMEOUT)
+    print(f"[spatial] dryrun_multichip({n_cards}) over NCCL, one rank a "
+          f"card, dp {dry['dp']} x sp {dry['sp']}: (dp, sp) FOM step max "
+          f"abs diff {dry['step_err']:.1e} against a 1x1 mesh, dp training "
+          f"loss {dry['train_loss']:.4e}, sharded skewed 64x64 "
+          f"{dry['skewed_its']} Newton its (max abs diff "
+          f"{dry['skewed_err']:.1e}), sharded HPROM {dry['hprom_gn_its']} GN "
+          f"its (max abs diff {dry['hprom_err']:.1e}); passed in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+
+
+def phase_spatial(card, ctx):
+    """[spatial] The multi-rank paths (parallel/mesh, parallel/spatial,
+    the sweeps' mesh=) on the cards: run_fom --spatial-shard over one NCCL
+    rank a card at 750^2 (with more than one card, spatial_cards too);
+    two gloo ranks (_spatial_ranks), sharing the card on one card, each
+    held against the unsharded port in this process; then
+    entry.dryrun_multichip over four gloo ranks. Returns the ranks' (B1,
+    B6) launches."""
+    from finitedifference_tpu_torch.entry import dryrun_multichip
+    from finitedifference_tpu_torch.parallel.mesh import spawn
+    from finitedifference_tpu_torch.runners import run_fom
+    from finitedifference_tpu_torch.snapshots import param_to_snap_fn
+
+    t_phase = time.perf_counter()
+    tag = f"[spatial] {SPATIAL_N}x{SPATIAL_N}"
+    grid = Grid2D(nx=SPATIAL_N, ny=SPATIAL_N)
+    w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
+    ref = inviscid_burgers_implicit2d_skewed(grid, w0, DT, SPATIAL_STEPS,
+                                             *MU)
+    n_cards = torch.cuda.device_count()
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            elapsed, _ = run_fom.main(*MU, num_cells=SPATIAL_N,
+                                      num_steps=SPATIAL_NCCL_STEPS,
+                                      device=DEVICE, spatial_shard=n_cards)
+            cfg = BurgersConfig().with_cells(SPATIAL_N)
+            saved = torch.as_tensor(np.load(param_to_snap_fn(
+                list(MU), snap_folder=cfg.snap_folder)), device=DEVICE)
+        finally:
+            os.chdir(here)
+    err = rel_err(saved, ref.snaps[:, :SPATIAL_NCCL_STEPS + 1])
+    check(err <= SPATIAL_TOL, f"run_fom --spatial-shard {n_cards}: rel {err}")
+    print(f"{tag} run_fom --spatial-shard {n_cards}: {n_cards} NCCL rank(s), "
+          f"one a card, f64 x {SPATIAL_NCCL_STEPS} steps: "
+          f"{1e3 * elapsed / SPATIAL_NCCL_STEPS:.1f} ms a step (rank 0's "
+          f"wall clock), rel {err:.3e} against the unsharded engine (B1) "
+          f"({card})")
+    if n_cards > 1:
+        spatial_cards(card, n_cards)
+
+    def placed(n_ranks):
+        return ("sharing card 0" if n_cards == 1 else
+                f"on {min(n_ranks, n_cards)} cards (rank r on card r % "
+                f"{n_cards})")
+
+    bench = {"mesh": type(ctx["mesh"])(*(t.cpu() for t in ctx["mesh"])),
+             "sw32": ctx["sw32"].cpu(), "y0": ctx["y0"].cpu(),
+             "ba": ctx["ba"].cpu()}
+    t0 = time.perf_counter()
+    out = spawn(_spatial_ranks, SPATIAL_GLOO_RANKS, bench, device=DEVICE,
+                backend="gloo", timeout=SPATIAL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    snaps, its, sec, exchanges = out["skewed"]
+    err = rel_err(snaps.to(DEVICE), ref.snaps)
+    check(err <= SPATIAL_TOL and its == ref.total_newton_its,
+          f"sharded skewed FOM: rel {err}, {its} Newton its against "
+          f"{ref.total_newton_its}")
+    print(f"{tag} sharded_skewed_fom over {SPATIAL_GLOO_RANKS} gloo ranks "
+          f"{placed(SPATIAL_GLOO_RANKS)}, f64 x {SPATIAL_STEPS} steps: {its} Newton its "
+          f"(unsharded {ref.total_newton_its}), rel {err:.3e} against B1's "
+          f"unsharded engine; {1e3 * sec / SPATIAL_STEPS:.1f} ms a step, "
+          f"{exchanges} halo exchanges through the host, "
+          f"{1e3 * sec / exchanges:.3f} ms an exchange with its diagonal "
+          f"({card})")
+
+    g = Grid2D(nx=ROM_N, ny=ROM_N)
+    fom = sweep_fom(g, torch.ones(g.state_dim, dtype=F64, device=DEVICE), DT,
+                    SPATIAL_SWEEP_STEPS, SPATIAL_SWEEP_MUS, engine="skewed")
+    err = rel_err(out["fom"].to(DEVICE), fom)
+    check(err <= SPATIAL_TOL, f"sweep_fom over dp: rel {err}")
+    traj = sweep_hprom(g, ctx["mesh"], ctx["sw32"], ctx["y0"], ctx["ba"], DT,
+                       ROM_STEPS, SWEEP_MUS, engine="pallas_traj",
+                       unroll_its=3)
+    n = len(SWEEP_MUS)
+    check(torch.equal(out["traj"][:n].to(DEVICE), traj),
+          "pallas_traj sweep over dp: rows differ from the unsharded launch")
+    counts = out["counts"].tolist()
+    check(all(b1 > 0 and b6 > 0 for b1, b6 in counts),
+          f"[spatial] ranks' (B1, B6) launches {counts}")
+    print(f"[spatial] {ROM_N}x{ROM_N} over dp = {SPATIAL_GLOO_RANKS} gloo "
+          f"ranks: sweep_fom skewed {len(SPATIAL_SWEEP_MUS)} points x "
+          f"{SPATIAL_SWEEP_STEPS} steps rel {err:.3e} against the unsharded "
+          f"sweep; the {n}-point sweep_hprom pallas_traj x {ROM_STEPS} "
+          f"steps (padded to {out['traj'].shape[0]}) bit-equal row by row to "
+          f"the unsharded launch; ranks' (B1, B6) launches {counts}; "
+          f"{wall:.1f} s with the ranks' start ({card})")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(SPATIAL_DRYRUN_RANKS, device=DEVICE,
+                           backend="gloo", timeout=SPATIAL_TIMEOUT)
+    print(f"[spatial] dryrun_multichip({SPATIAL_DRYRUN_RANKS}) over gloo "
+          f"ranks {placed(SPATIAL_DRYRUN_RANKS)}, dp {dry['dp']} x sp {dry['sp']}: (dp, sp) "
+          f"FOM step max abs diff {dry['step_err']:.1e} against a 1x1 mesh, "
+          f"dp training loss {dry['train_loss']:.4e}, sharded skewed 64x64 "
+          f"{dry['skewed_its']} Newton its (max abs diff "
+          f"{dry['skewed_err']:.1e}), sharded HPROM {dry['hprom_gn_its']} GN "
+          f"its (max abs diff {dry['hprom_err']:.1e}); passed in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    print(f"[spatial] phase {time.perf_counter() - t_phase:.1f} s")
+    return [sum(c[0] for c in counts), sum(c[1] for c in counts)]
+
+
+# ----------------------------------------------------------------------
 # the users' workflow: the runner CLIs, and the other weight methods
 # ----------------------------------------------------------------------
 
@@ -1858,15 +2107,16 @@ def phase_runners(card, b1_launches, gn_launches):
             print(line + f" ({card})")
 
         el, wall, counts, out = run_runner(
-            "run_sweep", run_sweep.main, model="hprom", **common)
+            "run_sweep", run_sweep.main, model="hprom",
+            **dict(common, num_steps=CUT_STEPS))
         errs = [float(e) for e in _found(
             r"error vs the cached FOM ([\d.e+-]+)%", out, "run_sweep")]
         check(len(errs) == 9 and max(errs) < HPROM_LIMIT,
               f"run_sweep hprom: errors {errs}")
         check(sum(counts.values()) == 0, f"run_sweep hprom: {counts}")
-        print(f"{base} run_sweep --model hprom 3x3 "
+        print(f"{base} run_sweep --model hprom 3x3 --num-steps {CUT_STEPS} "
               f"(the training points, generic engine, f32): wall "
-              f"{wall:.2f} s, {9 * steps / el:.2f} aggregate steps/s, "
+              f"{wall:.2f} s, {9 * CUT_STEPS / el:.2f} aggregate steps/s, "
               f"error vs the cached FOM {min(errs):.4f}-{max(errs):.4f}% "
               f"({card})")
     finally:
@@ -2252,12 +2502,26 @@ def phase_ae(card):
     return phase_b1
 
 
+@contextlib.contextmanager
+def driver_points(*modules):
+    """The drivers of `modules` loop over DRIVER_POINTS in place of the
+    three test points (the depth cut of [drivers])."""
+    saved = [m.TEST_POINTS for m in modules]
+    for m in modules:
+        m.TEST_POINTS = DRIVER_POINTS
+    try:
+        yield
+    finally:
+        for m, points in zip(modules, saved):
+            m.TEST_POINTS = points
+
+
 def phase_drivers(card):
-    """[drivers], in [ae]'s directory (its 50^2 FOM cache): run_tests
-    --models prom and a second call that must skip every key,
-    run_tests_hprom --models hprom, every point a runner process on the
-    card with no retry (a failed point fails the phase), then
-    check_derivatives on the card, every verdict OK."""
+    """[drivers], in [ae]'s directory (its 50^2 FOM cache), at
+    DRIVER_POINTS: run_tests --models prom and a second call that must
+    skip every key, run_tests_hprom --models hprom, every point a runner
+    process on the card with no retry (a failed point fails the phase),
+    then check_derivatives on the card, every verdict OK."""
     from finitedifference_tpu_torch.runners import (
         check_derivatives,
         run_tests,
@@ -2265,15 +2529,17 @@ def phase_drivers(card):
     )
 
     t_phase = time.perf_counter()
-    tag = f"[drivers] {AE_N}x{AE_N}"
+    tag = f"[drivers] {AE_N}x{AE_N} at {DRIVER_POINTS}"
+    n = len(DRIVER_POINTS)
     for label, main, model, out, n_keys in (
             ("run_tests --models prom", run_tests.main, "prom",
-             "rom_results.npz", 6),
+             "rom_results.npz", 2 * n),
             ("run_tests_hprom --models hprom", run_tests_hprom.main, "hprom",
-             "rom_results_hprom.npz", 3)):
+             "rom_results_hprom.npz", n)):
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), \
+                driver_points(run_tests, run_tests_hprom):
             results = main(models=(model,), out=out, num_cells=AE_N,
                            retries=0)
         wall = time.perf_counter() - t0
@@ -2287,17 +2553,19 @@ def phase_drivers(card):
               f"on the card, in {wall:.1f} s: {rows} ({card})")
         if model == "prom":
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()) as buf:
+            with contextlib.redirect_stdout(io.StringIO()) as buf, \
+                    driver_points(run_tests):
                 again = main(models=(model,), out=out, num_cells=AE_N,
                              retries=0)
             skipped = [line for line in buf.getvalue().splitlines()
                        if line.startswith("skipping")]
-            check(len(skipped) == 3 and "===" not in buf.getvalue()
+            check(len(skipped) == n and "===" not in buf.getvalue()
                   and all(np.array_equal(again[k], v)
                           for k, v in results.items()),
                   f"{label} again: {skipped}")
             print(f"{tag} {label} again: skipped all {len(skipped)} model "
-                  f"keys and the 3 FOMs in {time.perf_counter() - t0:.2f} s")
+                  f"keys and the {n} FOMs in "
+                  f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         verdicts = check_derivatives.main(device=DEVICE)
@@ -2371,9 +2639,29 @@ def phase_weight_methods(card, grid, basis, pairs, c):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def spatial_alone(card):
+    """`python3 chip_smoke.py spatial`: [spatial] alone, on every visible
+    card, with [rom]'s basis and bench mesh built first."""
+    grid = Grid2D(nx=ROM_N, ny=ROM_N)
+    basis, _ = rom_basis(grid, card)
+    mesh, sw32, ba = bench_mesh(grid, basis)
+    y0 = basis.T @ torch.ones(grid.state_dim, dtype=F32, device=DEVICE)
+    phase_spatial(card, dict(mesh=mesh, sw32=sw32, y0=y0, ba=ba))
+
+
 def main():
+    phases = sys.argv[1:]
+    check(phases in ([], ["spatial"]),
+          f"usage: python3 chip_smoke.py [spatial]; got {phases}")
     card = phase_environment()
     phase_build()
+    if phases:
+        spatial_alone(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     kern = phase_kernel_vs_plain(card)
     seg_kern = phase_seg_kernel(card)
     entry_launches, b2_kern, standard_launches = phase_entry_step(card)
@@ -2388,12 +2676,15 @@ def main():
     traj_kern = phase_traj_kernel(card, ctx)
     phase_rom_traj(card, ctx, gn_launches)
     seg_launches += phase_sweep(card, ctx, gn_launches)
+    spatial_b1, spatial_b6 = phase_spatial(card, ctx)
+    gn_launches["gn_traj"] += spatial_b6
     del ctx
     phase_fine_prom(card, gn_launches)
     phase_weight_methods(card, *phase_ecsw_recipe(card, gn_launches))
     launches = phase_runners(card, launches, gn_launches)
     launches = phase_closures(card, launches)
     launches += phase_ae(card)
+    launches += spatial_b1
     check(seg_launches > 0, "the seg paths launched no segmented kernel")
     for k, v in gn_launches.items():
         check(v > 0, f"the ROM path launched no {k} kernel")

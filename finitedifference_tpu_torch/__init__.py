@@ -32,6 +32,13 @@ Ported so far:
 - AE-LSPG (closures/autoencoder, training/data, training/ae_train,
   run_ae_prom), the regression drivers (run_tests, run_tests_hprom),
   check_derivatives, and entry, the twin of __graft_entry__.entry;
+- the multi-device paths over torch.distributed: parallel/mesh (the
+  ranks, meshes and collectives), parallel/spatial (the row-sharded
+  residual, Newton step, skewed trajectory and (dp, sp) step), the
+  sweeps' mesh=, parallel/sweep.sharded_factored_hprom with
+  rom_factored.factored_hprom's group, entry.dryrun_multichip and
+  run_fom --spatial-shard; and plotting (utils/plotting,
+  runners/plot_results);
 - convert, which carries grids, layouts, meshes, padded inputs, arrays,
   results and the closure models and networks across from the JAX
   package.

@@ -206,15 +206,22 @@ def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
                    blocks: FactoredBlocks, dt, num_steps, mu1, mu2, *,
                    max_its: int = 20, relnorm_cutoff: float = 1e-5,
                    min_delta: float = 0.1, unroll_its: int = 0,
-                   ls_method: str = "normal") -> ROMResult:
+                   ls_method: str = "normal", group=None) -> ROMResult:
     """HPROM time loop on the factored stencil blocks, in plain tensor
     ops, in y0's dtype.
 
     unroll_its > 0 runs that many masked Gauss-Newton iterations per
     step; iterations past the stopping rules freeze y, so the trajectory
     is the dynamic loop's whenever it would have stopped within the
-    budget. The JAX package's `axis_name` (SPMD over the sampled cells)
-    waits for parallel/ (ROADMAP).
+    budget.
+
+    group: the counterpart of the JAX package's `axis_name`. A process
+    group (parallel/mesh.Mesh.group) over whose ranks the sampled cells
+    are sharded: every Gram extension and the square of every initial
+    norm is summed over the ranks (parallel/mesh.group_psum, the same bits
+    on every rank), y stays the same on every rank and each rank solves
+    the small reduced system itself. See
+    parallel/sweep.sharded_factored_hprom.
     """
     y0 = as_tensor(y0)
     dtype, device = y0.dtype, y0.device
@@ -232,6 +239,15 @@ def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
         raise ValueError("ls_method='fused' needs the kernel engine "
                          "(pallas_hprom)")
     solve_ls = _reduced_solver(ls_method)
+    if group is None:
+        def psum(x):
+            return x
+    else:
+        # imported here: parallel/ imports this module
+        from finitedifference_tpu_torch.parallel.mesh import group_psum
+
+        def psum(x):
+            return group_psum(x, group)
 
     def scalars(y):
         return (p_flat @ y).reshape(6, n_s)
@@ -249,13 +265,13 @@ def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
         jv = torch.einsum("pn,pnk->nk", cv * wgt, p6)
         a = torch.cat((torch.cat((ju, (wgt * ru)[:, None]), dim=1),
                        torch.cat((jv, (wgt * rv)[:, None]), dim=1)), dim=0)
-        return a.T @ a
+        return psum(a.T @ a)
 
     def step(yp, sp):
         cp_u, cp_v = fl.step_const(sp)
         ru0, rv0 = fl.residual(sp, cp_u, cp_v)
-        init_norm = torch.sqrt(torch.sum((wgt * ru0) ** 2)
-                               + torch.sum((wgt * rv0) ** 2))
+        init_norm = torch.sqrt(psum(torch.sum((wgt * ru0) ** 2)
+                                    + torch.sum((wgt * rv0) ** 2)))
 
         def system(y):
             s = scalars(y)
