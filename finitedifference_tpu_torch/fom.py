@@ -34,6 +34,7 @@ from finitedifference_tpu_torch.ops.wavefront import (
     solve_jacobian_flat,
     solve_jacobian_sweeps,
 )
+from finitedifference_tpu_torch.utils import profiling
 
 
 class NewtonResult(NamedTuple):
@@ -175,89 +176,107 @@ def inviscid_burgers_implicit2d_skewed(
     The converged solution is unchanged (init_norm and the cutoff stay
     defined at the step-start state), but the predictor's O(dt^2) initial
     residual saves about one Newton iteration per step.
+
+    While a recording is on (utils/profiling) the call is the span
+    `fom.trajectory`, each step's constant `fom.step_constant`, each
+    update's `fom.solve`, `fom.residual` and `fom.sync` (the stop
+    decision's read-back, counted in `fom.host_syncs`).
     """
-    w0 = as_tensor(w0)
-    dtype, device = w0.dtype, w0.device
-    if relnorm_cutoff is None:
-        relnorm_cutoff = _default_cutoff(dtype)
-    sd = snaps_dtype or dtype
+    with profiling.span("fom.trajectory"):
+        w0 = as_tensor(w0)
+        dtype, device = w0.dtype, w0.device
+        if relnorm_cutoff is None:
+            relnorm_cutoff = _default_cutoff(dtype)
+        sd = snaps_dtype or dtype
 
-    lay = sk.make_layout(grid, block=block)
-    valid = sk.valid_mask(lay, dtype, device)
-    src_sk = sk.skewed_source(lay, grid, mu2, dt, dtype, device)
-    lbc_sk = sk.skewed_inflow_bc(lay, grid, mu1, dt, dtype, device)
+        lay = sk.make_layout(grid, block=block)
+        valid = sk.valid_mask(lay, dtype, device)
+        src_sk = sk.skewed_source(lay, grid, mu2, dt, dtype, device)
+        lbc_sk = sk.skewed_inflow_bc(lay, grid, mu1, dt, dtype, device)
 
-    u0, v0 = grid.split_fields(w0)
-    su0 = sk.to_skewed(u0, lay)
-    sv0 = sk.to_skewed(v0, lay)
+        u0, v0 = grid.split_fields(w0)
+        su0 = sk.to_skewed(u0, lay)
+        sv0 = sk.to_skewed(v0, lay)
 
-    def solve(u, v, ru, rv):
-        sdt = solve_dtype or dtype
-        args = (u.to(sdt), v.to(sdt), ru.to(sdt), rv.to(sdt), dt, grid, lay)
-        if seg > 0:
-            du, dv = sk.solve_skewed_seg(*args, n_seg=seg,
-                                         overlap=seg_overlap)
-        else:
-            du, dv = sk.solve_skewed(*args)
-        return du.to(dtype), dv.to(dtype)
+        def solve(u, v, ru, rv):
+            sdt = solve_dtype or dtype
+            args = (u.to(sdt), v.to(sdt), ru.to(sdt), rv.to(sdt), dt, grid,
+                    lay)
+            if seg > 0:
+                du, dv = sk.solve_skewed_seg(*args, n_seg=seg,
+                                             overlap=seg_overlap)
+            else:
+                du, dv = sk.solve_skewed(*args)
+            return du.to(dtype), dv.to(dtype)
 
-    def norm2(ru, rv):
-        return torch.sqrt(torch.sum(ru * ru) + torch.sum(rv * rv))
+        def norm2(ru, rv):
+            return torch.sqrt(torch.sum(ru * ru) + torch.sum(rv * rv))
 
-    def newton(up, vp, ug, vg):
-        # one pass computes the step's CN constant cp AND the init
-        # residual r0 = r(up, vp); the body solves first, THEN evaluates
-        # the residual at the updated state, so every evaluated state,
-        # stopping decision and iteration count is the reference's
-        cp_u, cp_v, r0u, r0v = sk.skewed_step_constant(
-            up, vp, dt, grid, src_sk, lbc_sk, valid)
-        init_norm = norm2(r0u, r0v)
-        if extrapolate_guess:
-            ru, rv = sk.skewed_residual_iter(ug, vg, cp_u, cp_v, dt, grid,
-                                             valid)
-            rn = norm2(ru, rv)
-            done = bool(rn / init_norm < relnorm_cutoff)
-        else:
-            ru, rv, rn = r0u, r0v, init_norm
-            done = False   # rn/init == 1 is never < cutoff
-        u, v, it = ug, vg, 0
-        while not done and it < max_its:
-            du, dv = solve(u, v, ru, rv)
-            u = u - du
-            v = v - dv
-            ru, rv = sk.skewed_residual_iter(u, v, cp_u, cp_v, dt, grid,
-                                             valid)
-            rn_prev, rn = rn, norm2(ru, rv)
-            done = bool((rn / init_norm < relnorm_cutoff)
-                        | (rn > 0.99 * rn_prev))
-            it += 1
-        return u, v, it, rn / init_norm
+        def read_back(stop):
+            # the loop's only host sync
+            with profiling.span("fom.sync"):
+                profiling.count("fom.host_syncs")
+                return bool(stop)
 
-    us = torch.empty((num_steps + 1, lay.nd_pad, lay.ny_pad), dtype=sd,
-                     device=device)
-    vs = torch.empty_like(us)
-    us[0], vs[0] = su0, sv0
-    up, vp, um, vm = su0, sv0, su0, sv0
-    total_its = 0
-    worst = torch.zeros((), dtype=dtype, device=device)
-    for i in range(num_steps):
-        if extrapolate_guess:
-            ug = valid * (2.0 * up - um)
-            vg = valid * (2.0 * vp - vm)
-        else:
-            ug, vg = up, vp
-        u, v, nits, rel = newton(up, vp, ug, vg)
-        total_its += nits
-        worst = torch.maximum(worst, rel)
-        um, vm, up, vp = up, vp, u, v
-        us[i + 1], vs[i + 1] = u, v
+        def newton(up, vp, ug, vg):
+            # one pass computes the step's CN constant cp AND the init
+            # residual r0 = r(up, vp); the body solves first, THEN
+            # evaluates the residual at the updated state, so every
+            # evaluated state, stopping decision and iteration count is
+            # the reference's
+            with profiling.span("fom.step_constant"):
+                cp_u, cp_v, r0u, r0v = sk.skewed_step_constant(
+                    up, vp, dt, grid, src_sk, lbc_sk, valid)
+                init_norm = norm2(r0u, r0v)
+            if extrapolate_guess:
+                ru, rv = sk.skewed_residual_iter(ug, vg, cp_u, cp_v, dt,
+                                                 grid, valid)
+                rn = norm2(ru, rv)
+                done = read_back(rn / init_norm < relnorm_cutoff)
+            else:
+                ru, rv, rn = r0u, r0v, init_norm
+                done = False   # rn/init == 1 is never < cutoff
+            u, v, it = ug, vg, 0
+            while not done and it < max_its:
+                with profiling.span("fom.solve"):
+                    du, dv = solve(u, v, ru, rv)
+                u = u - du
+                v = v - dv
+                with profiling.span("fom.residual"):
+                    ru, rv = sk.skewed_residual_iter(u, v, cp_u, cp_v, dt,
+                                                     grid, valid)
+                    rn_prev, rn = rn, norm2(ru, rv)
+                    stop = ((rn / init_norm < relnorm_cutoff)
+                            | (rn > 0.99 * rn_prev))
+                done = read_back(stop)
+                it += 1
+            return u, v, it, rn / init_norm
 
-    # unskew the whole trajectory in one gather
-    u_t = sk.from_skewed(us, lay).reshape(num_steps + 1, -1)
-    v_t = sk.from_skewed(vs, lay).reshape(num_steps + 1, -1)
-    snaps = torch.cat((u_t, v_t), dim=1).T
-    return FOMResult(snaps=snaps, total_newton_its=total_its,
-                     max_final_relnorm=worst)
+        us = torch.empty((num_steps + 1, lay.nd_pad, lay.ny_pad),
+                         dtype=sd, device=device)
+        vs = torch.empty_like(us)
+        us[0], vs[0] = su0, sv0
+        up, vp, um, vm = su0, sv0, su0, sv0
+        total_its = 0
+        worst = torch.zeros((), dtype=dtype, device=device)
+        for i in range(num_steps):
+            if extrapolate_guess:
+                ug = valid * (2.0 * up - um)
+                vg = valid * (2.0 * vp - vm)
+            else:
+                ug, vg = up, vp
+            u, v, nits, rel = newton(up, vp, ug, vg)
+            total_its += nits
+            worst = torch.maximum(worst, rel)
+            um, vm, up, vp = up, vp, u, v
+            us[i + 1], vs[i + 1] = u, v
+
+        # unskew the whole trajectory in one gather
+        u_t = sk.from_skewed(us, lay).reshape(num_steps + 1, -1)
+        v_t = sk.from_skewed(vs, lay).reshape(num_steps + 1, -1)
+        snaps = torch.cat((u_t, v_t), dim=1).T
+        return FOMResult(snaps=snaps, total_newton_its=total_its,
+                         max_final_relnorm=worst)
 
 
 def inviscid_burgers_explicit2d(grid: Grid2D, w0, dt, num_steps, mu1, mu2):

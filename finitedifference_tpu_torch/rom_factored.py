@@ -63,6 +63,7 @@ from finitedifference_tpu_torch.ops.sampled import (
 from finitedifference_tpu_torch.ops.stencil import inflow_bc_term, source_term
 from finitedifference_tpu_torch.rom import ROMResult
 from finitedifference_tpu_torch.solvers import cg_normal
+from finitedifference_tpu_torch.utils import profiling
 
 CG_ITERS = 24
 
@@ -440,18 +441,27 @@ def traj_source(grid: Grid2D, mesh, dt, mu1, mu2, n_p: int, dtype):
 def traj_hprom_batch(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,
                      mus, **kwargs):
     """pallas_traj_hprom for every (mu1, mu2) row of `mus` in ONE launch:
-    returns (reduced coords (B, k, num_steps+1), GN updates (B,))."""
-    y0 = torch.as_tensor(y0, device=p6p.device).to(p6p.dtype)
-    n_p = p6p.shape[1]
-    slbc = torch.stack([traj_source(grid, mesh, dt, mu1, mu2, n_p,
-                                    p6p.dtype) for mu1, mu2 in mus])
-    y0b = y0.expand(len(slbc), -1).contiguous()
-    out = trajectory_hprom(p6p, y0b, slbc, wgt_p, y0.shape[0],
-                           float(0.5 * dt / grid.dx),
-                           float(0.5 * dt / grid.dy), int(num_steps),
-                           **kwargs)
-    red = torch.cat((y0b[:, None], out.ys), dim=1).transpose(1, 2)
-    return red, out.its
+    returns (reduced coords (B, k, num_steps+1), GN updates (B,)).
+
+    While a recording is on (utils/profiling) the call is the span
+    `rom.traj_batch`, the per-point inputs `rom.traj_inputs`, and the
+    Gauss-Newton systems the engine built are added to `rom.gn_systems`.
+    """
+    with profiling.span("rom.traj_batch"):
+        with profiling.span("rom.traj_inputs"):
+            y0 = torch.as_tensor(y0, device=p6p.device).to(p6p.dtype)
+            n_p = p6p.shape[1]
+            slbc = torch.stack([traj_source(grid, mesh, dt, mu1, mu2, n_p,
+                                            p6p.dtype) for mu1, mu2 in mus])
+            y0b = y0.expand(len(slbc), -1).contiguous()
+        out = trajectory_hprom(p6p, y0b, slbc, wgt_p, y0.shape[0],
+                               float(0.5 * dt / grid.dx),
+                               float(0.5 * dt / grid.dy), int(num_steps),
+                               **kwargs)
+        # the systems the kernel built, left on the device
+        profiling.count("rom.gn_systems", out.evals)
+        red = torch.cat((y0b[:, None], out.ys), dim=1).transpose(1, 2)
+        return red, out.its
 
 
 def pallas_traj_hprom(grid: Grid2D, mesh, p6p, wgt_p, y0, dt, num_steps,

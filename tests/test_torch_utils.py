@@ -1,6 +1,6 @@
 """utils/ of the port on the CPU: Timer, phase_breakdown (the JAX keys,
-positive times), trace (a Chrome trace file under the log directory) and
-StepTimer."""
+positive times) and trace (a Chrome trace file under the log directory;
+the program's spans: tests/test_torch_tracing.py)."""
 
 import functools
 import json
@@ -56,11 +56,3 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.get("name", "") for e in events)
     assert any("mm" in a.key for a in prof.key_averages())
 
-
-def test_step_timer_prints_every_n(capsys):
-    st = profiling.StepTimer(label="step", every=3)
-    for _ in range(7):
-        st.tick()
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 2 and lines[0].startswith("... step 3 (")
-    assert lines[1].startswith("... step 6 (") and st.count == 7
