@@ -15,7 +15,13 @@ Phases, each printing its own lines:
    that do not fill the cluster's CTAs evenly, more warps in a CTA than
    it has schedulers), in float32 and float64: error, exact zeros off
    the band, two runs bit-equal, and at the main layout both times (CUDA
-   events, median of 3);
+   events, median of 3); then [residual] R1, the residual kernels of the
+   skewed Newton loop (csrc/skewed_residual.cu), at the main-path
+   layout, f32 and f64: a step's constant, an update and the
+   extrapolated guess's residual against the eager expressions (fields
+   bit-equal, norms within NORM_TOL, the same stop flag, two runs
+   bit-equal), each kernel timed in turns with its eager composition
+   beside the bound of its fields;
 4. [entry] the entry step through the port's twin of
    __graft_entry__.entry (finitedifference_tpu_torch/entry.py): newton_step
    at 250^2 with a float32 state, max_its 20, on the card against the same
@@ -32,8 +38,10 @@ Phases, each printing its own lines:
 5. the main path: inviscid_burgers_implicit2d_skewed at 750^2 with a
    float64 state and float32 snapshots, (a) with float32 solves and
    (b) with float64 solves; 5 warm-up steps, then 3 runs of 100 steps:
-   steps/s, Newton iterations per step, one kernel launch per iteration;
-6. a 64^2 float64 trajectory on the card against the CPU;
+   steps/s, Newton iterations per step, one B1 and one R1 launch per
+   iteration and one R1 step constant per step;
+6. a 64^2 float64 trajectory on the card against the CPU (R1 counted as
+   in 5);
 7. the Gauss-Newton system kernels against their plain PyTorch versions
    on the card, in float32 and float64: B3 (gn_full) at the 250^2 and
    750^2 95-mode layouts (two runs bit-equal) and at a 150 x 149, 40-mode
@@ -71,7 +79,8 @@ Phases, each printing its own lines:
    own nothing, one segment within KERNEL_TOL of B1);
 12. [main-seg] the 750^2 trajectory with seg=8, seg_overlap=64 (f32
    solves, f64 Newton, f32 snapshots): steps/s, Newton its/step, one B7
-   launch per Newton iteration, final state against the exact chain;
+   and one R1 launch per Newton iteration, one R1 step constant per
+   step, final state against the exact chain;
 13. [traj-kernel] the whole-trajectory kernel (B6) against its plain
    version on the 250^2 bench mesh layout (6, 1536, 128), 50 steps, 1
    and 9 trajectories, f32 and f64: error, two runs bit-equal, the b = 1
@@ -84,7 +93,8 @@ Phases, each printing its own lines:
 15. [sweep] the 9-point μ grid of bench.py at 250^2: sweep_hprom
    pallas_traj (one launch for all 9 points) for 500 steps, generic and
    factored for CUT_STEPS, each point held against its own run, and
-   sweep_fom(engine="skewed", seg=8) for 100 steps: aggregate steps/s.
+   sweep_fom(engine="skewed", seg=8) for 100 steps: aggregate steps/s,
+   one R1 launch per B7 launch and one step constant per step.
 16. [spatial] the multi-rank paths: run_fom --spatial-shard over one NCCL
    rank a card at 750^2 for SPATIAL_NCCL_STEPS steps, its snapshots
    against the unsharded skewed engine (B1) in float64; with more than
@@ -168,9 +178,10 @@ Each main path runs with the kernels' counts set to 0 just before it and
 read just after (in each rank's process for [spatial]); it fails if a
 kernel of the path was not launched.
 
-Then one JSON line on the seven kernels (B2's launches are the entry
-step's, beside those of the standard engine's run; B1's every other
-path's; with each kernel's bound: the larger
+Then one JSON line on the seven kernels and R1's two (B2's launches are
+the entry step's, beside those of the standard engine's run; B1's every
+other path's; R1's those of 5, 6, 12 and 15; with each kernel's bound:
+the larger
 of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s in f32 or
 34 TFLOP/s in f64, the H100 SXM data sheet's rates), the card line, and
 last {"ok": true, "device": {...}}. Any failure raises and exits
@@ -213,6 +224,7 @@ from finitedifference_tpu_torch.grid import Grid2D, grid_from_config
 from finitedifference_tpu_torch.ops import _build, gn
 from finitedifference_tpu_torch.ops import cuda_gn as cg
 from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
+from finitedifference_tpu_torch.ops import cuda_skewed as cr
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import gn_full as gf
 from finitedifference_tpu_torch.ops import skewed as sk
@@ -233,6 +245,9 @@ MEAS_STEPS = 100
 REPS = 3
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 F32, F64 = torch.float32, torch.float64
+# R1's norms against torch.sum's: both sum in the working type, in other
+# orders (its fields are the eager expressions' bits)
+NORM_TOL = {F32: 1e-6, F64: 1e-13}
 DEVICE = "cuda"
 
 # the reduced models (bench.py rom_metrics / fine_rom_metrics)
@@ -535,6 +550,110 @@ def phase_kernel_vs_plain(card):
     return main
 
 
+def residual_inputs(n, dtype):
+    """R1 at the n^2 layout: (grid, lay, valid, workspace, fields), the
+    fields u, v in [1, 2] with an update du, dv 1e-3 of a normal one, the
+    source and the inflow term, zero off the band."""
+    grid = Grid2D(nx=n, ny=n)
+    lay = sk.make_layout(grid)
+    u, v, fu, fv = skewed_inputs(lay, dtype, seed=n)
+    f = dict(u=u, v=v, du=1e-3 * fu, dv=1e-3 * fv,
+             src=sk.skewed_source(lay, grid, MU[1], DT, dtype, DEVICE),
+             lbc=sk.skewed_inflow_bc(lay, grid, MU[0], DT, dtype, DEVICE))
+    return (grid, lay, sk.valid_mask(lay, dtype, DEVICE),
+            cr.ResidualWorkspace(lay, dtype, DEVICE), f)
+
+
+def phase_residual_kernel(card):
+    """[residual] R1 (csrc/skewed_residual.cu) against the eager
+    expressions on the card at the 750^2 main-path layout, f32 and f64:
+    a step's constant and an update (and the extrapolated guess's
+    residual, no update and no stagnation term) with their norms and the
+    stop flag. Fields bit-equal, norms within NORM_TOL, the same stop,
+    two runs bit-equal; then each kernel and its eager composition in
+    turns (kernel, eager, eager, kernel; CUDA events, median of 3 x 50
+    calls) beside the bound of its fields (10 an update, 8 a step
+    constant). Returns {dtype: {"update": numbers, "step_constant":
+    numbers}}."""
+    out = {}
+    for dtype in (F32, F64):
+        grid, lay, valid, ws, f = residual_inputs(MAIN_N, dtype)
+        cases = {
+            "step_constant": (
+                lambda: cr.step_constant_cuda(
+                    f["u"], f["v"], DT, grid, lay, f["src"], f["lbc"],
+                    workspace=ws),
+                lambda: sk.skewed_step_constant_norm_ref(
+                    f["u"], f["v"], DT, grid, f["src"], f["lbc"], valid),
+                8)}
+        cp_u, cp_v, _, _, init = cases["step_constant"][1]()
+        for key, du, dv, rn_prev in (("update", f["du"], f["dv"], init),
+                                     ("guess", None, None, None)):
+            kw = dict(init_norm=init, rn_prev=rn_prev, cutoff=1e-12)
+            cases[key] = (
+                lambda du=du, dv=dv, kw=kw: cr.update_residual_cuda(
+                    f["u"], f["v"], du, dv, cp_u, cp_v, DT, grid, lay,
+                    workspace=ws, **kw),
+                lambda du=du, dv=dv, kw=kw: sk.skewed_update_residual_ref(
+                    f["u"], f["v"], du, dv, cp_u, cp_v, DT, grid, valid,
+                    **kw),
+                10)
+        numbers = {}
+        for key, (kernel, eager, n_fields) in cases.items():
+            label = f"{key} {str(dtype)[6:]}"
+            got, again, want = kernel(), kernel(), eager()
+            torch.cuda.synchronize()
+            fields = [i for i, w in enumerate(want)
+                      if w.dim() == 2]
+            norm = fields[-1] + 1
+            check(all(torch.equal(got[i], want[i]) for i in fields),
+                  f"R1 {label}: fields differ from the eager expressions")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"R1 {label}: two runs differ")
+            err = rel_err(got[norm], want[norm])
+            check(err <= NORM_TOL[dtype], f"R1 {label}: norm rel {err}")
+            if key != "step_constant":
+                check(bool(got[5]) == bool(want[5]),
+                      f"R1 {label}: stop {bool(got[5])} against "
+                      f"{bool(want[5])}")
+            line = (f"[residual] R1 {key} {MAIN_N}x{MAIN_N} layout "
+                    f"{lay.nd_pad}x{lay.ny_pad} {str(dtype)[6:]}: fields "
+                    f"bit-equal to eager, norm rel {err:.3e}, two runs "
+                    f"bit-equal")
+            if key != "guess":
+                t = [cuda_ms(fn, calls=50)
+                     for fn in (kernel, eager, eager, kernel)]
+                bound_ms, bound_by = bound(
+                    n_fields * got[0].numel() * got[0].element_size(), 0,
+                    dtype)
+                numbers[key] = dict(max_abs_err=0.0, norm_rel_err=err,
+                                    ms=statistics.median((t[0], t[3])),
+                                    plain_ms=statistics.median((t[1], t[2])),
+                                    bound_ms=bound_ms, bound_by=bound_by)
+                line += (f"; kernel {t[0]:.4f} / {t[3]:.4f} ms, eager "
+                         f"{t[1]:.4f} / {t[2]:.4f} ms (in turns), bound "
+                         f"{bound_ms:.4f} ms ({n_fields} fields, "
+                         f"{bound_by})")
+            print(f"{line} ({card})")
+        out[dtype] = numbers
+    return out
+
+
+def reset_residual_counts():
+    cr.RESIDUAL_LAUNCHES = 0
+    cr.STEP_CONSTANT_LAUNCHES = 0
+
+
+def residual_counts(label, updates, steps):
+    """R1's launches since reset_residual_counts, checked: one an update,
+    one a step. Returns them (updates, steps)."""
+    got = (cr.RESIDUAL_LAUNCHES, cr.STEP_CONSTANT_LAUNCHES)
+    check(got == (updates, steps) and steps > 0,
+          f"{label}: R1 launched {got[0]} updates and {got[1]} step "
+          f"constants for {updates} Newton iterations and {steps} steps")
+    return got
+
+
 def phase_entry_step(card):
     """The entry step through the port's twin of __graft_entry__.entry
     (finitedifference_tpu_torch.entry): its 250^2 float32 Newton step on
@@ -694,17 +813,19 @@ def standard_engine(card):
 
 def phase_main_path(card):
     """The 750^2 trajectory with f32 and with f64 solves; returns the
-    kernel launches of all its runs and the final state of the last
-    f32-solve run."""
+    B1 launches of all its runs, R1's [update, step constant] launches
+    and the final state of the last f32-solve run."""
     grid = Grid2D(nx=MAIN_N, ny=MAIN_N)
     w0 = torch.ones(grid.state_dim, dtype=F64, device="cuda")
     total_launches = 0
+    r1 = [0, 0]
     finals = {}
     for label, solve_dtype in (("a: f32 solve", F32),
                                ("b: f64 solve", None)):
         def run(steps):
             nonlocal total_launches
             cw.LAUNCHES = 0
+            reset_residual_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = inviscid_burgers_implicit2d_skewed(
@@ -717,6 +838,9 @@ def phase_main_path(card):
             check(launches == res.total_newton_its > 0,
                   f"{label}: {launches} launches for "
                   f"{res.total_newton_its} Newton iterations")
+            for i, n in enumerate(residual_counts(
+                    label, res.total_newton_its, steps)):
+                r1[i] += n
             check(np.isfinite(checksum), f"{label}: trajectory not finite")
             check(tuple(res.snaps.shape) == (grid.state_dim, steps + 1),
                   f"{label}: snapshot shape {tuple(res.snaps.shape)}")
@@ -742,14 +866,19 @@ def phase_main_path(card):
     a, b = finals.values()
     print(f"[main] final f32 snapshot (a) vs (b): rel {rel_err(a, b):.3e}, "
           f"{int((a != b).sum())} of {a.numel()} entries differ, max abs "
-          f"difference {float((a - b).abs().max()):.3e}")
-    return total_launches, a
+          f"difference {float((a - b).abs().max()):.3e}; R1 launched once "
+          f"an update and once a step ({r1[0]} + {r1[1]})")
+    return total_launches, r1, a
 
 
 def phase_gpu_vs_cpu():
+    """A 64^2 float64 trajectory on the card (B1 and R1) against the CPU
+    (the plain versions); returns R1's [update, step constant] launches."""
     grid = Grid2D(nx=64, ny=64)
     w0 = torch.ones(grid.state_dim, dtype=F64)
+    reset_residual_counts()
     gpu = inviscid_burgers_implicit2d_skewed(grid, w0.cuda(), DT, 20, *MU)
+    r1 = residual_counts("64x64 GPU", gpu.total_newton_its, 20)
     cpu = inviscid_burgers_implicit2d_skewed(grid, w0, DT, 20, *MU)
     rel = rel_err(gpu.snaps.cpu(), cpu.snaps)
     check(rel < 1e-12, f"64x64 GPU vs CPU: rel {rel}")
@@ -758,6 +887,7 @@ def phase_gpu_vs_cpu():
           f"{cpu.total_newton_its}")
     print(f"[slice] 64x64 f64 20 steps GPU vs CPU: rel {rel:.3e}, "
           f"{gpu.total_newton_its} Newton its on both")
+    return list(r1)
 
 
 # ----------------------------------------------------------------------
@@ -1450,15 +1580,17 @@ def phase_seg_kernel(card):
 
 def phase_main_seg(card, exact_final):
     """The 750^2 trajectory with the segmented solve (bench.py:168-200);
-    returns its B7 launches."""
+    returns its B7 launches and R1's [update, step constant] launches."""
     grid = Grid2D(nx=MAIN_N, ny=MAIN_N)
     w0 = torch.ones(grid.state_dim, dtype=F64, device=DEVICE)
     total = 0
+    r1 = [0, 0]
 
     def run(steps):
         nonlocal total
         cw.LAUNCHES = 0
         cw.SEG_LAUNCHES = 0
+        reset_residual_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = inviscid_burgers_implicit2d_skewed(
@@ -1472,6 +1604,9 @@ def phase_main_seg(card, exact_final):
               f"launches for {res.total_newton_its} Newton iterations")
         check(np.isfinite(checksum), "main-seg: trajectory not finite")
         total += cw.SEG_LAUNCHES
+        for i, n in enumerate(residual_counts(
+                "main-seg", res.total_newton_its, steps)):
+            r1[i] += n
         return res, elapsed
 
     run(WARM_STEPS)
@@ -1488,10 +1623,10 @@ def phase_main_seg(card, exact_final):
           f"f64 Newton, f32 snapshots: {statistics.median(rates):.3f} "
           f"steps/s (median of {REPS} x {MEAS_STEPS} steps; runs "
           f"{', '.join(f'{r:.3f}' for r in rates)}), "
-          f"{statistics.median(its):.2f} Newton its/step, one B7 launch per "
-          f"iteration, final state rel {diff:.3e} vs the exact chain "
-          f"({card})")
-    return total
+          f"{statistics.median(its):.2f} Newton its/step, one B7 and one "
+          f"R1 launch per iteration, final state rel {diff:.3e} vs the "
+          f"exact chain ({card})")
+    return total, r1
 
 
 def traj_inputs(n, k, n_cells, dtype, b, seed=11, device="cuda"):
@@ -1672,7 +1807,8 @@ def phase_rom_traj(card, ctx, launches):
 def phase_sweep(card, ctx, gn_launches):
     """The 9-point μ grid at 250^2: the HPROM sweeps (pallas_traj for 500
     steps, generic and factored for CUT_STEPS) and the seg FOM sweep for
-    100 steps; returns the B7 launches."""
+    100 steps; returns the B7 launches and R1's [update, step constant]
+    launches."""
     grid, mesh, y0 = ctx["grid"], ctx["mesh"], ctx["y0"]
     sw32, ba = ctx["sw32"], ctx["ba"]
     n = len(SWEEP_MUS)
@@ -1732,6 +1868,7 @@ def phase_sweep(card, ctx, gn_launches):
     sweep_fom(grid, w0, DT, WARM_STEPS, SWEEP_MUS[:1], **kw)
     cw.LAUNCHES = 0
     cw.SEG_LAUNCHES = 0
+    reset_residual_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     snaps = sweep_fom(grid, w0, DT, SWEEP_FOM_STEPS, SWEEP_MUS, **kw)
@@ -1740,14 +1877,15 @@ def phase_sweep(card, ctx, gn_launches):
     launches = cw.SEG_LAUNCHES
     check(launches > 0 and cw.LAUNCHES == 0,
           f"seg FOM sweep: {launches} seg and {cw.LAUNCHES} exact launches")
+    r1 = residual_counts("seg FOM sweep", launches, n * SWEEP_FOM_STEPS)
     check(tuple(snaps.shape) == (n, grid.state_dim, SWEEP_FOM_STEPS + 1),
           f"seg FOM sweep: shape {tuple(snaps.shape)}")
     print(f"[sweep] {ROM_N}x{ROM_N} {n}-point sweep_fom skewed seg={SEG} x "
           f"{SWEEP_FOM_STEPS} steps (f32 solves, f64 Newton): "
           f"{n * SWEEP_FOM_STEPS / elapsed:.2f} aggregate steps/s, "
           f"{launches} B7 launches ({launches / (n * SWEEP_FOM_STEPS):.2f} "
-          f"per step) ({card})")
-    return launches
+          f"per step), R1 {r1[0]} + {r1[1]} ({card})")
+    return launches, list(r1)
 
 
 # ----------------------------------------------------------------------
@@ -2664,18 +2802,22 @@ def main():
         return
     kern = phase_kernel_vs_plain(card)
     seg_kern = phase_seg_kernel(card)
+    r1_kern = phase_residual_kernel(card)
     entry_launches, b2_kern, standard_launches = phase_entry_step(card)
-    launches, exact_final = phase_main_path(card)
+    launches, r1_launches, exact_final = phase_main_path(card)
     check(launches > 0, "the main path launched no wavefront kernel")
-    seg_launches = phase_main_seg(card, exact_final)
-    phase_gpu_vs_cpu()
+    seg_launches, r1_seg = phase_main_seg(card, exact_final)
+    r1_slice = phase_gpu_vs_cpu()
     gn_kern = phase_gn_kernels(card)
     b2_device_kernels(card)
     gn_launches = {k: 0 for k in GN_KERNELS}
     ctx = phase_rom_250(card, gn_launches)
     traj_kern = phase_traj_kernel(card, ctx)
     phase_rom_traj(card, ctx, gn_launches)
-    seg_launches += phase_sweep(card, ctx, gn_launches)
+    sweep_launches, r1_sweep = phase_sweep(card, ctx, gn_launches)
+    seg_launches += sweep_launches
+    r1_launches = [sum(n) for n in zip(r1_launches, r1_seg, r1_slice,
+                                       r1_sweep)]
     spatial_b1, spatial_b6 = phase_spatial(card, ctx)
     gn_launches["gn_traj"] += spatial_b6
     del ctx
@@ -2692,7 +2834,7 @@ def main():
     def entry(name, source, replaces, n_launches, main, extra):
         """A kernel's line: the main-path numbers in f32, the others
         under suffixed keys (B4 and B5 add ms_device, a call's time in a
-        CUDA graph). None of the seven is one PyTorch call, so
+        CUDA graph). None of the nine is one PyTorch call, so
         library_ms is null (PERF.md)."""
         e = {"name": name, "route": "cuda",
              "source": f"finitedifference_tpu_torch/csrc/{source}",
@@ -2701,7 +2843,8 @@ def main():
         e.update({key: main[key] for key in ("max_abs_err", "ms",
                                              "plain_ms", "bound_ms",
                                              "bound_by", "ms_device",
-                                             "composition_ms")
+                                             "composition_ms",
+                                             "norm_rel_err")
                   if key in main})
         for suffix, numbers in extra.items():
             e.update({f"{key}_{suffix}": v for key, v in numbers.items()})
@@ -2736,6 +2879,15 @@ def main():
                          {"b1": traj_kern[(1, F32)],
                           "f64": traj_kern[(9, F64)],
                           "f64_b1": traj_kern[(1, F64)]}))
+    # R1 replaces no Pallas kernel: XLA fused these JAX functions, their
+    # norms and the stop test under jit
+    for i, (name, replaces, key) in enumerate((
+            ("skewed_update_residual", "skewed.py:173", "update"),
+            ("skewed_step_constant", "skewed.py:151", "step_constant"))):
+        entries.append(entry(name, "skewed_residual.cu", replaces,
+                             r1_launches[i], r1_kern[F32][key],
+                             {"f64": r1_kern[F64][key]}))
+        entries[-1].update(layout=f"{MAIN_N}x{MAIN_N}", fused_by_xla=True)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ one boolean back from the device to decide whether to stop. The device
 of the initial state decides where everything runs (an initial state
 that is not a tensor goes to the CUDA device, device.py): on the CPU the
 linear solve is the plain diagonal loop, on a CUDA device it is the
-hand-written wavefront kernel (ops/cuda_wavefront.py).
+hand-written wavefront kernel (ops/cuda_wavefront.py) and, in the skewed
+engine, the residual and its norm are one hand-written kernel
+(ops/cuda_skewed.py).
 """
 
 from __future__ import annotations
@@ -152,8 +154,10 @@ def inviscid_burgers_implicit2d_skewed(
 
     The triangular solve consumes the skewed state directly, with no
     per-iteration skew gathers. On a CUDA device every Newton iteration
-    launches the wavefront kernel once; on the CPU it runs the plain
-    diagonal loop.
+    launches the wavefront kernel once and the residual kernel
+    (ops/cuda_skewed: the update, the residual, its norm and the stop
+    test) once, and every step the residual kernel's step constant once;
+    on the CPU it runs the plain diagonal loop and the plain expressions.
 
     `solve_dtype` is the dtype of the linear solves; None means the
     state's dtype, on every device. `solve_dtype=torch.float32` with an
@@ -179,8 +183,12 @@ def inviscid_burgers_implicit2d_skewed(
 
     While a recording is on (utils/profiling) the call is the span
     `fom.trajectory`, each step's constant `fom.step_constant`, each
-    update's `fom.solve`, `fom.residual` and `fom.sync` (the stop
-    decision's read-back, counted in `fom.host_syncs`).
+    update's `fom.solve`, `fom.residual` (the update, the residual, its
+    norm and the stop test) and `fom.sync` (the stop decision's
+    read-back, counted in `fom.host_syncs`). On a CUDA device
+    ops/skewed.skewed_update_residual counts the residual kernel's
+    launches for the updates (and for the extrapolated guesses) in
+    `fom.fused_residuals`.
     """
     with profiling.span("fom.trajectory"):
         w0 = as_tensor(w0)
@@ -209,30 +217,37 @@ def inviscid_burgers_implicit2d_skewed(
                 du, dv = sk.solve_skewed(*args)
             return du.to(dtype), dv.to(dtype)
 
-        def norm2(ru, rv):
-            return torch.sqrt(torch.sum(ru * ru) + torch.sum(rv * rv))
-
         def read_back(stop):
             # the loop's only host sync
             with profiling.span("fom.sync"):
                 profiling.count("fom.host_syncs")
                 return bool(stop)
 
+        # on a CUDA device each step constant and each update is one launch
+        # of the residual kernel, which also takes the norm and the stop test
+        ws = sk.residual_workspace(lay, dtype, device)
+
+        def residual(u, v, du, dv, cp_u, cp_v, init_norm, rn_prev):
+            return sk.skewed_update_residual(
+                u, v, du, dv, cp_u, cp_v, dt, grid, lay, valid,
+                init_norm=init_norm, rn_prev=rn_prev, cutoff=relnorm_cutoff,
+                workspace=ws)
+
         def newton(up, vp, ug, vg):
             # one pass computes the step's CN constant cp AND the init
             # residual r0 = r(up, vp); the body solves first, THEN
-            # evaluates the residual at the updated state, so every
+            # updates the state and evaluates the residual there, so every
             # evaluated state, stopping decision and iteration count is
             # the reference's
             with profiling.span("fom.step_constant"):
-                cp_u, cp_v, r0u, r0v = sk.skewed_step_constant(
-                    up, vp, dt, grid, src_sk, lbc_sk, valid)
-                init_norm = norm2(r0u, r0v)
+                cp_u, cp_v, r0u, r0v, init_norm = \
+                    sk.skewed_step_constant_norm(up, vp, dt, grid, lay,
+                                                 src_sk, lbc_sk, valid,
+                                                 workspace=ws)
             if extrapolate_guess:
-                ru, rv = sk.skewed_residual_iter(ug, vg, cp_u, cp_v, dt,
-                                                 grid, valid)
-                rn = norm2(ru, rv)
-                done = read_back(rn / init_norm < relnorm_cutoff)
+                _, _, ru, rv, rn, stop = residual(ug, vg, None, None, cp_u,
+                                                  cp_v, init_norm, None)
+                done = read_back(stop)
             else:
                 ru, rv, rn = r0u, r0v, init_norm
                 done = False   # rn/init == 1 is never < cutoff
@@ -240,14 +255,9 @@ def inviscid_burgers_implicit2d_skewed(
             while not done and it < max_its:
                 with profiling.span("fom.solve"):
                     du, dv = solve(u, v, ru, rv)
-                u = u - du
-                v = v - dv
                 with profiling.span("fom.residual"):
-                    ru, rv = sk.skewed_residual_iter(u, v, cp_u, cp_v, dt,
-                                                     grid, valid)
-                    rn_prev, rn = rn, norm2(ru, rv)
-                    stop = ((rn / init_norm < relnorm_cutoff)
-                            | (rn > 0.99 * rn_prev))
+                    u, v, ru, rv, rn, stop = residual(u, v, du, dv, cp_u,
+                                                      cp_v, init_norm, rn)
                 done = read_back(stop)
                 it += 1
             return u, v, it, rn / init_norm

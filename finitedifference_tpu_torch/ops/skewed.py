@@ -25,10 +25,16 @@ import torch
 import torch.nn.functional as F
 
 from finitedifference_tpu_torch.grid import Grid2D
+from finitedifference_tpu_torch.ops.cuda_skewed import (
+    ResidualWorkspace,
+    step_constant_cuda,
+    update_residual_cuda,
+)
 from finitedifference_tpu_torch.ops.cuda_wavefront import (
     solve_skewed_cuda,
     solve_skewed_seg_cuda,
 )
+from finitedifference_tpu_torch.utils import profiling
 
 
 def skew(x: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
@@ -196,6 +202,85 @@ def skewed_residual_iter(u, v, cp_u, cp_v, dt, grid: Grid2D, valid):
     as skewed_residual (tested)."""
     au, av = _half_flux(u, v, dt, grid)
     return au * valid + cp_u, av * valid + cp_v
+
+
+def norm2(ru, rv):
+    """The Newton loop's residual norm sqrt(sum ru^2 + sum rv^2)."""
+    return torch.sqrt(torch.sum(ru * ru) + torch.sum(rv * rv))
+
+
+def skewed_step_constant_norm_ref(up, vp, dt, grid: Grid2D, src_sk, lbc_sk,
+                                  valid):
+    """skewed_step_constant and the norm of r0, as plain expressions in the
+    inputs' dtype and on their device: (cp_u, cp_v, r0_u, r0_v,
+    init_norm)."""
+    cp_u, cp_v, r0_u, r0_v = skewed_step_constant(up, vp, dt, grid, src_sk,
+                                                  lbc_sk, valid)
+    return cp_u, cp_v, r0_u, r0_v, norm2(r0_u, r0_v)
+
+
+def residual_workspace(lay: SkewedLayout, dtype, device):
+    """The scratch that skewed_step_constant_norm and skewed_update_residual
+    take for fields of `lay` in `dtype` on `device`: make one a run and pass
+    it to every call. None on the CPU, whose plain versions need none; on
+    every other device the residual kernel's (ops/cuda_skewed
+    .ResidualWorkspace)."""
+    if torch.device(device).type == "cpu":
+        return None
+    return ResidualWorkspace(lay, dtype, device)
+
+
+def skewed_step_constant_norm(up, vp, dt, grid: Grid2D, lay: SkewedLayout,
+                              src_sk, lbc_sk, valid, *, workspace):
+    """A step's constant, its residual at (up, vp) and that residual's norm
+    on padded skewed inputs: CPU tensors take
+    skewed_step_constant_norm_ref, every other device one launch of the
+    residual kernel (ops/cuda_skewed.step_constant_cuda, scratch in
+    `workspace`, from residual_workspace), which raises on what it cannot
+    run."""
+    if up.device.type == "cpu":
+        return skewed_step_constant_norm_ref(up, vp, dt, grid, src_sk,
+                                             lbc_sk, valid)
+    return step_constant_cuda(up, vp, dt, grid, lay, src_sk, lbc_sk,
+                              workspace=workspace)
+
+
+def skewed_update_residual_ref(u, v, du, dv, cp_u, cp_v, dt, grid: Grid2D,
+                               valid, *, init_norm, rn_prev, cutoff):
+    """One Newton update as plain expressions in the inputs' dtype and on
+    their device: u' = u - du, v' = v - dv (none when du is None), the
+    residual at (u', v') from the step constant, its norm rn and the stop
+    test rn / init_norm < cutoff, or rn > 0.99 * rn_prev (left out when
+    rn_prev is None). Returns (u', v', ru, rv, rn, stop)."""
+    if du is not None:
+        u = u - du
+        v = v - dv
+    ru, rv = skewed_residual_iter(u, v, cp_u, cp_v, dt, grid, valid)
+    rn = norm2(ru, rv)
+    stop = rn / init_norm < cutoff
+    if rn_prev is not None:
+        stop = stop | (rn > 0.99 * rn_prev)
+    return u, v, ru, rv, rn, stop
+
+
+def skewed_update_residual(u, v, du, dv, cp_u, cp_v, dt, grid: Grid2D,
+                           lay: SkewedLayout, valid, *, init_norm, rn_prev,
+                           cutoff, workspace):
+    """One Newton update on padded skewed inputs (skewed_update_residual_
+    ref): CPU tensors take the plain version, every other device one
+    launch of the residual kernel (ops/cuda_skewed.update_residual_cuda,
+    scratch in `workspace`, from residual_workspace), which raises on what
+    it cannot run. Each launch counts one `fom.fused_residuals` while a
+    recording is on (utils/profiling)."""
+    if u.device.type == "cpu":
+        return skewed_update_residual_ref(u, v, du, dv, cp_u, cp_v, dt, grid,
+                                          valid, init_norm=init_norm,
+                                          rn_prev=rn_prev, cutoff=cutoff)
+    out = update_residual_cuda(u, v, du, dv, cp_u, cp_v, dt, grid, lay,
+                               init_norm=init_norm, rn_prev=rn_prev,
+                               cutoff=cutoff, workspace=workspace)
+    profiling.count("fom.fused_residuals")
+    return out
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:

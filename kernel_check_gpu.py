@@ -4,7 +4,7 @@ GPU, for work on their sources (a minute or two each, where chip_smoke.py
 takes six).
 
     python3 kernel_check_gpu.py [b1|b2|b3|b6|b7|b45|b6phases|b6variants|
-                                 b7variants|b45variants|all]
+                                 b7variants|b45variants|r1|all]
     python3 kernel_check_gpu.py times OUT.pt
     python3 kernel_check_gpu.py diff A.pt B.pt
     python3 kernel_check_gpu.py rnm
@@ -33,14 +33,20 @@ f64, two runs and b = 1 bit-equal to its row of b = 9; then its time for
 plain versions on SAMPLED_CASES, f32 and f64, two runs bit-equal; then
 at the bench mesh layout their eager and device (CUDA graph) times and
 device kernels a call. b7: the segment solve against its plain version on
-chip_smoke.SEG_LAYOUTS, then its time at 750^2 beside B1's. b6phases,
+chip_smoke.SEG_LAYOUTS, then its time at 750^2 beside B1's. r1: the
+residual kernels of the skewed FOM's Newton loop (R1) against the eager
+expressions at 750^2 (chip_smoke.phase_residual_kernel), then the host's
+share of a Newton update (check_r1_host): each wrapper's and the
+read-back's host time a call, and a trajectory's spans. b6phases,
 b6variants and b7variants time throw-away builds of the two kernels, each
 with one phase left out or one constant changed (B6_PHASES at clusters of
 8 and 16, B6_VARIANTS, B7_VARIANTS), for PERF.md's breakdowns; their
-results are never used. times: B1 to B7 on COMPARE_CASES, and the entry
+results are never used. times: B1 to B7 on COMPARE_CASES, the entry
 step (fom.newton_step at 250^2, max_its 20, warm, with a float32 state as
-entry.entry() runs it and with a float64 one), their times and their
-outputs saved to OUT.pt; run from another checkout with this script and
+entry.entry() runs it and with a float64 one) and R1, the residual
+kernels of the skewed FOM's Newton loop (an update and a step constant
+at 750^2, in turns with their eager compositions, beside the bound of
+their bytes), their times and their outputs saved to OUT.pt; run from another checkout with this script and
 chip_smoke.py copied in, it times that checkout's kernels on the same
 inputs, and diff says which outputs of two such files are bit-equal.
 rnm, no kernel of the port's own: the RNM trainer's epoch
@@ -66,24 +72,30 @@ variance. Fails without a CUDA device or on any
 disagreement.
 """
 
+import collections
 import re
+import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
+from finitedifference_tpu_torch import fom
 from finitedifference_tpu_torch.config import BurgersConfig
 from finitedifference_tpu_torch.fom import newton_step
 from finitedifference_tpu_torch.grid import Grid2D, grid_from_config
 from finitedifference_tpu_torch.ops import _build, gn
 from finitedifference_tpu_torch.ops import cuda_gn as cg
 from finitedifference_tpu_torch.ops import cuda_gn_full as cgf
+from finitedifference_tpu_torch.ops import cuda_skewed as cr
 from finitedifference_tpu_torch.ops import cuda_wavefront as cw
 from finitedifference_tpu_torch.ops import gn_full as gf
 from finitedifference_tpu_torch.ops import skewed as sk
 from finitedifference_tpu_torch.ops.wavefront import solve_jacobian_wavefront
+from finitedifference_tpu_torch.utils import profiling
 
 F32, F64 = torch.float32, torch.float64
 DT = 0.05
@@ -627,7 +639,8 @@ def check_b45_variants(only=()):
 # residuals between them);
 # B7, the main path's layouts, one segment (B1's solve) and four above
 # 768 rows (ny_pad 1024, 1152, 2048, 2176); (kernel, points) for B6 at
-# the bench mesh layout
+# the bench mesh layout; R1, the residual kernels of the skewed FOM's
+# Newton loop (an update, a step constant) at the 750^2 layout
 COMPARE_CASES = [("B3", 750), ("B3", 250), ("B4", 1508, 95, 256),
                  ("B5", 1508, 95, 256), ("B4", 1000, 150, 8),
                  ("B5", 1000, 150, 8),
@@ -637,7 +650,146 @@ COMPARE_CASES = [("B3", 750), ("B3", 250), ("B4", 1508, 95, 256),
                  ("B7", 750, 750, 8, 64),
                  ("B7", 40, 1000, 4, 32), ("B7", 40, 1100, 4, 32),
                  ("B7", 20, 2000, 16, 8), ("B7", 20, 2100, 16, 8),
-                 ("B6", 1), ("B6", 9)]
+                 ("B6", 1), ("B6", 9), ("R1", 750)]
+
+
+def residual_cases(n, dtype):
+    """R1 at the n^2 layout: [(key, kernel call, eager call, bytes)] for an
+    update (u, v, du, dv, cp_u, cp_v read; u', v', ru, rv written) and a
+    step constant (u, v, src, lbc read; cp, r0 written), on
+    chip_smoke.residual_inputs, as the Newton loop sees them."""
+    grid, lay, valid, ws, f = cs.residual_inputs(n, dtype)
+    u, v = f["u"], f["v"]
+    cp_u, cp_v, _, _, init = sk.skewed_step_constant_norm_ref(
+        u, v, DT, grid, f["src"], f["lbc"], valid)
+    field = lay.nd_pad * lay.ny_pad * u.element_size()
+    kw = dict(init_norm=init, rn_prev=init, cutoff=1e-12)
+    name = f"R1 {n}x{n} layout {lay.nd_pad}x{lay.ny_pad}"
+    return [
+        (f"{name} update",
+         lambda: cr.update_residual_cuda(u, v, f["du"], f["dv"], cp_u, cp_v,
+                                         DT, grid, lay, workspace=ws, **kw),
+         lambda: sk.skewed_update_residual_ref(u, v, f["du"], f["dv"], cp_u,
+                                               cp_v, DT, grid, valid, **kw),
+         10 * field),
+        (f"{name} step constant",
+         lambda: cr.step_constant_cuda(u, v, DT, grid, lay, f["src"],
+                                       f["lbc"], workspace=ws),
+         lambda: sk.skewed_step_constant_norm_ref(u, v, DT, grid, f["src"],
+                                                  f["lbc"], valid),
+         8 * field)]
+
+
+def host_us(fn, calls=200):
+    """The host's microseconds a call of fn, `calls` calls issued from an
+    idle card and timed before the card finishes them (median of 3)."""
+    fn()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def check_r1_host(card):
+    """The host's share of a skewed Newton update at 750^2 in float64, the
+    FOM cells' precision. First each part alone (host_us): the B1 and B7
+    wrappers, the loop's solve (ops/skewed's dispatch and the four casts
+    around it), R1's update wrapper alone and through ops/skewed, R1's
+    step constant, the read-back of the stop flag from an idle card. Then
+    a 100-step trajectory, exact and seg=8, with the program's spans on
+    and no profiler: each span's host time a call, the host's time
+    between spans (the loop's own Python: from a read-back to the next
+    solve inside a step, to the next step constant across a step), and
+    the wall time an update."""
+    grid, lay, valid, ws, f = cs.residual_inputs(cs.MAIN_N, F64)
+    u, v = f["u"], f["v"]
+    cp_u, cp_v, ru, rv, init = cr.step_constant_cuda(
+        u, v, DT, grid, lay, f["src"], f["lbc"], workspace=ws)
+    stop = cr.update_residual_cuda(u, v, f["du"], f["dv"], cp_u, cp_v, DT,
+                                   grid, lay, init_norm=init, rn_prev=init,
+                                   cutoff=1e-12, workspace=ws)[5]
+    kw = dict(init_norm=init, rn_prev=init, cutoff=1e-12, workspace=ws)
+
+    def loop_solve():
+        du, dv = sk.solve_skewed(u.to(F64), v.to(F64), ru.to(F64),
+                                 rv.to(F64), DT, grid, lay)
+        return du.to(F64), dv.to(F64)
+
+    parts = {
+        "B1 wrapper (solve_skewed_cuda)": lambda: cw.solve_skewed_cuda(
+            u, v, ru, rv, DT, grid, lay),
+        "B7 wrapper (solve_skewed_seg_cuda, 8 segments)": lambda: (
+            cw.solve_skewed_seg_cuda(u, v, ru, rv, DT, grid, lay,
+                                     n_seg=cs.SEG, overlap=cs.SEG_OVERLAP)),
+        "the loop's solve (ops/skewed.solve_skewed, B1, four casts)":
+            loop_solve,
+        "R1 update wrapper (update_residual_cuda)": lambda: (
+            cr.update_residual_cuda(u, v, f["du"], f["dv"], cp_u, cp_v, DT,
+                                    grid, lay, **kw)),
+        "R1 update through ops/skewed.skewed_update_residual": lambda: (
+            sk.skewed_update_residual(u, v, f["du"], f["dv"], cp_u, cp_v,
+                                      DT, grid, lay, valid, **kw)),
+        "R1 step constant wrapper (step_constant_cuda)": lambda: (
+            cr.step_constant_cuda(u, v, DT, grid, lay, f["src"], f["lbc"],
+                                  workspace=ws)),
+        "read-back bool(stop), the card idle": lambda: bool(stop),
+    }
+    for name, fn in parts.items():
+        print(f"[r1-host] 750x750 f64 {name}: {host_us(fn):.1f} us a call "
+              f"(host clock, median of 3 x 200) ({card})", flush=True)
+
+    w0 = torch.ones(grid.state_dim, dtype=F64, device="cuda")
+    steps = cs.MEAS_STEPS
+    for label, fkw in (("exact", {}), ("seg=8", dict(
+            seg=cs.SEG, seg_overlap=cs.SEG_OVERLAP))):
+        fom.inviscid_burgers_implicit2d_skewed(grid, w0, DT, cs.WARM_STEPS,
+                                               *cs.MU, **fkw)
+        torch.cuda.synchronize()
+        with profiling.recording() as rec:
+            t0 = time.perf_counter()
+            res = fom.inviscid_burgers_implicit2d_skewed(grid, w0, DT, steps,
+                                                         *cs.MU, **fkw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        its = res.total_newton_its
+        inner = sorted((s for s in rec.spans if s.parent),
+                       key=lambda s: s.start_ns)
+        host = collections.defaultdict(list)
+        for s in inner:
+            host[s.name].append(1e-3 * (s.end_ns - s.start_ns))
+        for a, b in zip(inner, inner[1:]):
+            host[f"{a.name} -> {b.name}"].append(
+                1e-3 * (b.start_ns - a.end_ns))
+        line = ", ".join(f"{name} {statistics.mean(us):.1f} us x {len(us)}"
+                         for name, us in host.items())
+        print(f"[r1-host] 750x750 f64 {label} trajectory, {steps} steps, "
+              f"{its} updates, spans on: {1e3 * wall / its:.4f} ms an "
+              f"update (wall); host a call: {line} ({card})", flush=True)
+
+
+def time_residual(n, dtype, saved):
+    """R1's kernels and their eager compositions timed in turns (kernel,
+    eager, eager, kernel; CUDA events, median of 3 x 50 calls), beside
+    the bound of their bytes; the kernels' outputs saved."""
+    for key, kernel, eager, nbytes in residual_cases(n, dtype):
+        key += f" {str(dtype)[6:]}"
+        got, want = kernel(), eager()
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got[:4], want[:4]))
+        t = [cs.cuda_ms(fn, calls=50) for fn in (kernel, eager, eager,
+                                                 kernel)]
+        bound, by = cs.bound(nbytes, 0, dtype)
+        saved[key] = [g.cpu() for g in got if g.is_floating_point()]
+        print(f"[times] {key}: {t[0]:.4f} / {t[3]:.4f} ms, eager "
+              f"{t[1]:.4f} / {t[2]:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {by}); fields "
+              f"{'bit-equal to' if same else 'differ from'} eager",
+              flush=True)
 
 
 def times(out):
@@ -647,6 +799,9 @@ def times(out):
     for case in COMPARE_CASES:
         for dtype in (F32, F64):
             device = None
+            if case[0] == "R1":
+                time_residual(case[1], dtype, saved)
+                continue
             if case[0] == "B3":
                 args = cs.full_system_inputs(case[1], dtype, seed=case[1])
 
@@ -1041,13 +1196,13 @@ def run_ae250():
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "all"
     modes = ("b1", "b2", "b3", "b45", "b6", "b6phases", "b6variants", "b7",
-             "b7variants", "b45variants", "rnm", "ae", "ae250", "all")
+             "b7variants", "b45variants", "r1", "rnm", "ae", "ae250", "all")
     if what == "diff":
         diff(sys.argv[2], sys.argv[3])
         return
     cs.check(what in (*modes, "times"), "usage: kernel_check_gpu.py "
              "[b1|b2|b3|b45|b6|b6phases|b6variants|b7|b7variants|b45variants|"
-             "rnm|ae|ae250|all] | times OUT.pt | diff A.pt B.pt")
+             "r1|rnm|ae|ae250|all] | times OUT.pt | diff A.pt B.pt")
     cs.check(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1083,6 +1238,9 @@ def main():
         check_b7_variants()
     if what in ("b7", "all"):
         check_b7()
+    if what in ("r1", "all"):
+        cs.phase_residual_kernel(card)
+        check_r1_host(card)
     print(card)
 
 

@@ -133,6 +133,135 @@ def test_skewed_ops_match_jax():
                                    atol=1e-13)
 
 
+def residual_inputs(seed, nx=12, ny=10):
+    """JAX and port grids and layouts, and skewed numpy fields zero off the
+    band: a step's start (up, vp), a state (u, v) near it and an update
+    (du, dv)."""
+    jg, tg = grids(nx, ny)
+    jlay, tlay = skewed_pair(jg, tg)
+    rng = np.random.default_rng(seed)
+    band = np.asarray(jsk.valid_mask(jlay, jnp.float64))
+    shape = (jlay.nd_pad, jlay.ny_pad)
+    up, vp = (1 + 0.2 * rng.uniform(size=shape) for _ in range(2))
+    u, v = (x + 0.01 * rng.normal(size=shape) for x in (up, vp))
+    du, dv = (1e-3 * rng.normal(size=shape) for _ in range(2))
+    return jg, tg, jlay, tlay, [x * band for x in (up, vp, u, v, du, dv)]
+
+
+def port_step(tg, tlay, dtype, fields):
+    """The port's source, inflow and band mask in `dtype`, the fields as
+    CPU tensors of it, and the step constant by skewed_step_constant."""
+    src = tsk.skewed_source(tlay, tg, MU[1], DT, dtype, "cpu")
+    lbc = tsk.skewed_inflow_bc(tlay, tg, MU[0], DT, dtype, "cpu")
+    valid = tsk.valid_mask(tlay, dtype, "cpu")
+    up, vp, u, v, du, dv = (torch.as_tensor(x, dtype=dtype) for x in fields)
+    cp = tsk.skewed_step_constant(up, vp, DT, tg, src, lbc, valid)
+    return src, lbc, valid, (up, vp, u, v, du, dv), cp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_step_constant_norm_on_the_cpu_is_the_composition(dtype):
+    """On CPU tensors skewed_step_constant_norm is skewed_step_constant
+    and the norm of r0, bit for bit."""
+    _, tg, _, tlay, fields = residual_inputs(11)
+    src, lbc, valid, (up, vp, *_), want = port_step(tg, tlay, dtype, fields)
+    got = tsk.skewed_step_constant_norm(up, vp, DT, tg, tlay, src, lbc,
+                                        valid, workspace=None)
+    norm = torch.sqrt(torch.sum(want[2] * want[2])
+                      + torch.sum(want[3] * want[3]))
+    for g, w in zip(got, (*want, norm)):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("update", [True, False], ids=["update", "guess"])
+def test_update_residual_on_the_cpu_is_the_composition(dtype, update):
+    """On CPU tensors skewed_update_residual is the Newton loop's eager
+    update, bit for bit: u - du, skewed_residual_iter, the norm and the
+    stop expression (the guess: no update, no stagnation term)."""
+    _, tg, _, tlay, fields = residual_inputs(12)
+    _, _, valid, (_, _, u, v, du, dv), cp = port_step(tg, tlay, dtype,
+                                                      fields)
+    init = torch.sqrt(torch.sum(cp[2] * cp[2]) + torch.sum(cp[3] * cp[3]))
+    rn_prev = 0.5 * init if update else None
+    got = tsk.skewed_update_residual(
+        u, v, du if update else None, dv if update else None, cp[0], cp[1],
+        DT, tg, tlay, valid, init_norm=init, rn_prev=rn_prev, cutoff=1e-12,
+        workspace=None)
+    if update:
+        u, v = u - du, v - dv
+    ru, rv = tsk.skewed_residual_iter(u, v, cp[0], cp[1], DT, tg, valid)
+    rn = torch.sqrt(torch.sum(ru * ru) + torch.sum(rv * rv))
+    stop = rn / init < 1e-12
+    if update:
+        stop = stop | (rn > 0.99 * rn_prev)
+    for g, w in zip(got, (u, v, ru, rv, rn, stop)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("update", [True, False], ids=["update", "guess"])
+def test_fused_residual_functions_match_jax(update):
+    """The step constant with its norm and an update with its residual and
+    norm, against the JAX package's skewed_step_constant and
+    skewed_residual_iter at the state the update gives."""
+    jg, tg, jlay, tlay, fields = residual_inputs(13)
+    src, lbc, valid, (up, vp, u, v, du, dv), _ = port_step(tg, tlay, F64,
+                                                           fields)
+    jup, jvp, ju, jv, jdu, jdv = map(jnp.asarray, fields)
+    jvalid = jsk.valid_mask(jlay, jnp.float64)
+    jsrc = jsk.skewed_source(jlay, jg, MU[1], DT, jnp.float64)
+    jlbc = jsk.skewed_inflow_bc(jlay, jg, MU[0], DT, jnp.float64)
+
+    def jnorm(a, b):
+        return float(jnp.sqrt(jnp.sum(a * a) + jnp.sum(b * b)))
+
+    want_c = jsk.skewed_step_constant(jup, jvp, DT, jg, jsrc, jlbc, jvalid)
+    got_c = tsk.skewed_step_constant_norm(up, vp, DT, tg, tlay, src, lbc,
+                                          valid, workspace=None)
+    for g, w in zip(got_c, want_c):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+    assert abs(float(got_c[4]) - jnorm(*want_c[2:])) <= 1e-13 * jnorm(
+        *want_c[2:])
+    if update:
+        ju, jv = ju - jdu, jv - jdv
+    want = jsk.skewed_residual_iter(ju, jv, want_c[0], want_c[1], DT, jg,
+                                    jvalid)
+    got = tsk.skewed_update_residual(
+        u, v, du if update else None, dv if update else None, got_c[0],
+        got_c[1], DT, tg, tlay, valid, init_norm=got_c[4], rn_prev=None,
+        cutoff=1e-12, workspace=None)
+    for g, w in zip(got[:4], (ju, jv, *want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-13)
+    assert abs(float(got[4]) - jnorm(*want)) <= 1e-13 * jnorm(*want)
+
+
+@pytest.mark.parametrize("branch,scale,stagnation,stop", [
+    ("neither", (1e-3, 1e3), True, False),
+    ("cutoff", (1e15, 1e3), True, True),
+    ("stagnation", (1e-3, 1e-3), True, True),
+    ("no stagnation term", (1e-3, 1e-3), False, False),
+])
+def test_stop_flag_agrees_with_the_eager_expression(branch, scale,
+                                                    stagnation, stop):
+    """The stop flag is rn / init_norm < cutoff, or rn > 0.99 rn_prev when
+    rn_prev is given, in each branch."""
+    _, tg, _, tlay, fields = residual_inputs(14)
+    _, _, valid, (_, _, u, v, du, dv), cp = port_step(tg, tlay, F64, fields)
+    r0 = torch.sqrt(torch.sum(cp[2] * cp[2]) + torch.sum(cp[3] * cp[3]))
+    init, rn_prev = r0 * scale[0], r0 * scale[1]
+    got = tsk.skewed_update_residual(
+        u, v, du, dv, cp[0], cp[1], DT, tg, tlay, valid, init_norm=init,
+        rn_prev=rn_prev if stagnation else None, cutoff=1e-12,
+        workspace=None)
+    rn = got[4]
+    want = rn / init < 1e-12
+    if stagnation:
+        want = want | (rn > 0.99 * rn_prev)
+    assert bool(got[5]) == bool(want) == stop, branch
+
+
 def skewed_inputs(jlay, seed, dtype=np.float64):
     """Skewed u, v in [1, 2] and a normal rhs, zero off the band."""
     rng = np.random.default_rng(seed)
