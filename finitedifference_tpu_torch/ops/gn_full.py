@@ -25,6 +25,8 @@ bottom rows: unmasked, the bottom rows put +14% into ||r||^2 at 250^2).
 (ops/cuda_gn_full.py) on CUDA tensors and the plain PyTorch version
 `gn_full_ref` on CPU tensors; any other device raises. Both compute
 per-tile partial Grams in the working dtype and reduce them in float64.
+Each system they build counts one `rom.gn_full_systems` while a recording
+is on (utils/profiling): on the card, one launch of the kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from finitedifference_tpu_torch.device import as_tensor
 from finitedifference_tpu_torch.ops.cuda_gn_full import gn_full_cuda
+from finitedifference_tpu_torch.utils import profiling
 
 KP = 128
 
@@ -174,27 +177,32 @@ def _check_device(x):
                          f"or CPU (plain) tensors, got {x.device}")
 
 
+def _system(vu_p, vv_p, y, aux, dmask, k, nxp, tile, hdx, hdy, first):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check_device(vu_p)
+    if vu_p.is_cuda:
+        out = gn_full_cuda(vu_p, vv_p, y, aux, dmask, k, nxp, hdx, hdy,
+                           first=first)
+    else:
+        out = gn_full_ref(vu_p, vv_p, y, aux, dmask, k, nxp, tile, hdx, hdy,
+                          first=first)
+    profiling.count("rom.gn_full_systems")
+    return out
+
+
 def gn_full_first(vu_p, vv_p, y, slbc_p, dmask, k: int, nxp: int,
                   tile: int, hdx: float, hdy: float):
     """First GN iteration of a time step: the system at the incoming
     state and the step constant. Returns (gext (kp, kp) float64,
     cp (n_pad, 2)). `tile` sets the plain version's partial-Gram tiles;
     the kernel picks its own."""
-    _check_device(vu_p)
-    if vu_p.is_cuda:
-        return gn_full_cuda(vu_p, vv_p, y, slbc_p, dmask, k, nxp, hdx, hdy,
-                            first=True)
-    return gn_full_ref(vu_p, vv_p, y, slbc_p, dmask, k, nxp, tile, hdx,
-                       hdy, first=True)
+    return _system(vu_p, vv_p, y, slbc_p, dmask, k, nxp, tile, hdx, hdy,
+                   first=True)
 
 
 def gn_full_system(vu_p, vv_p, y, cp, dmask, k: int, nxp: int, tile: int,
                    hdx: float, hdy: float):
     """A later GN iteration: the system at y with the step's cp.
     Returns gext (kp, kp) float64."""
-    _check_device(vu_p)
-    if vu_p.is_cuda:
-        return gn_full_cuda(vu_p, vv_p, y, cp, dmask, k, nxp, hdx, hdy,
-                            first=False)[0]
-    return gn_full_ref(vu_p, vv_p, y, cp, dmask, k, nxp, tile, hdx, hdy,
-                       first=False)[0]
+    return _system(vu_p, vv_p, y, cp, dmask, k, nxp, tile, hdx, hdy,
+                   first=False)[0]

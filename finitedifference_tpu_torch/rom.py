@@ -49,6 +49,9 @@ class ROMResult(NamedTuple):
     # number of kernel launches of the kernel engines (rom_factored);
     # None where the engine does not count them
     gn_evals: Optional[int] = None
+    # the most Gauss-Newton updates any one time step took (rom_factored's
+    # engines); None where the engine does not count them
+    max_step_its: Optional[int] = None
 
 
 def _run_lspg(y0, w0_dec, num_steps, make_res, decode, dec_jac, jac_apply,

@@ -125,6 +125,11 @@ def _gauss_newton(y, init_norm, system, *, it0, unrolled, n_iters,
     frozen; no read-back (it is returned as a 0-dim tensor). Else: a
     Python loop until the stop or max_its, one read-back per evaluation.
     Returns (y, it, evaluations).
+
+    While a recording is on (utils/profiling) the stop test and the
+    update of each evaluation are the span `rom.gn_update`, and in the
+    Python loop each read-back is the span `rom.gn_sync` and one
+    `rom.gn_host_syncs`.
     """
     if unrolled:
         it = torch.full((), it0, dtype=torch.int64, device=y.device)
@@ -132,27 +137,32 @@ def _gauss_newton(y, init_norm, system, *, it0, unrolled, n_iters,
         rn_prev = init_norm
         for _ in range(n_iters):
             dy, rn = system(y)
-            conv = rn / init_norm < relnorm_cutoff
-            stag = (it > 0) & (torch.abs(rn_prev - rn) / rn_prev
-                               < min_delta)
-            stop = conv | stag | done
-            y = torch.where(stop, y, (y.to(dy.dtype) + dy).to(y.dtype))
-            it = it + (~stop).to(it.dtype)
-            rn_prev = torch.where(done, rn_prev, rn)
-            done = stop
+            with profiling.span("rom.gn_update"):
+                conv = rn / init_norm < relnorm_cutoff
+                stag = (it > 0) & (torch.abs(rn_prev - rn) / rn_prev
+                                   < min_delta)
+                stop = conv | stag | done
+                y = torch.where(stop, y, (y.to(dy.dtype) + dy).to(y.dtype))
+                it = it + (~stop).to(it.dtype)
+                rn_prev = torch.where(done, rn_prev, rn)
+                done = stop
         return y, it, n_iters
     it, done, rn_prev, evals = it0, False, init_norm, 0
     while not done and it < max_its:
         dy, rn = system(y)
         evals += 1
-        stop = rn / init_norm < relnorm_cutoff
-        if it > 0:
-            stop = stop | (torch.abs(rn_prev - rn) / rn_prev < min_delta)
-        done = bool(stop)
-        if not done:
-            y = (y.to(dy.dtype) + dy).to(y.dtype)
-            it += 1
-        rn_prev = rn
+        with profiling.span("rom.gn_update"):
+            stop = rn / init_norm < relnorm_cutoff
+            if it > 0:
+                stop = stop | (torch.abs(rn_prev - rn) / rn_prev
+                               < min_delta)
+            with profiling.span("rom.gn_sync"):
+                profiling.count("rom.gn_host_syncs")
+                done = bool(stop)
+            if not done:
+                y = (y.to(dy.dtype) + dy).to(y.dtype)
+                it += 1
+            rn_prev = rn
     return y, it, evals
 
 
@@ -186,21 +196,31 @@ class _HalfFlux:
 
 def _time_loop(y0, num_steps, step, scalars=None):
     """Shared trajectory loop: step(yp, sp) -> (y, its, evals), where sp
-    = scalars(yp) when the engine carries the previous step's scalars."""
+    = scalars(yp) when the engine carries the previous step's scalars.
+    ROMResult.max_step_its is the most updates any one step took: with
+    unroll_its > 0, a step at unroll_its took its last update unchecked."""
     def carried(y):
         return None if scalars is None else scalars(y)
 
     ys = torch.empty((num_steps + 1, y0.shape[0]), dtype=y0.dtype,
                      device=y0.device)
     ys[0] = y0
-    yp, sp, its, evals = y0, carried(y0), 0, 0
+    yp, sp, step_its, evals = y0, carried(y0), [], 0
     for i in range(num_steps):
         y, it, ev = step(yp, sp)
         ys[i + 1] = y
-        its, evals = its + it, evals + ev
+        step_its.append(it)
+        evals += ev
         yp, sp = y, carried(y)
+    if step_its and torch.is_tensor(step_its[0]):
+        # the masked loop's counts stay on the device until here: one
+        # read-back of the sum and the largest
+        per_step = torch.stack(step_its)
+        its, most = torch.stack([per_step.sum(), per_step.max()]).tolist()
+    else:
+        its, most = sum(step_its), max(step_its, default=0)
     return ROMResult(red_coords=ys.T, total_gn_its=int(its),
-                     gn_evals=evals)
+                     gn_evals=evals, max_step_its=int(most))
 
 
 def factored_hprom(grid: Grid2D, mesh, sample_weights, y0,
@@ -385,49 +405,61 @@ def pallas_prom(grid: Grid2D, vu_p, vv_p, dmask, y0, dt, num_steps,
     rules as rom.lspg_prom; the first update of a step is always taken.
     unroll_its > 0 runs that many calls per step in all (the first
     included), masked. ROMResult.gn_evals counts the kernel calls.
+
+    While a recording is on (utils/profiling) the call is the span
+    `rom.prom_trajectory`, each system call `rom.prom_system`, each
+    reduced solve (and a step's first update) `rom.prom_solve`, beside
+    _gauss_newton's spans and ops/gn_full's `rom.gn_full_systems`.
     """
-    dtype, device = vu_p.dtype, vu_p.device
-    y0 = torch.as_tensor(y0, device=device).to(dtype)
-    k = y0.shape[0]
-    n_pad = vu_p.shape[0]
-    nxp = _round_up(grid.nx + 1, 8)      # dead-cell row layout
-    ny_pad = n_pad // nxp
-    tile = tile_rows * nxp
-    sdt = dtype if ls_dtype is None else ls_dtype
-    hdx = float(0.5 * dt / grid.dx)
-    hdy = float(0.5 * dt / grid.dy)
-    slbc = torch.zeros((ny_pad, nxp), dtype=dtype, device=device)
-    slbc[: grid.ny, : grid.nx] = \
-        source_term(grid, mu2, dt, dtype, device) \
-        + inflow_bc_term(grid, mu1, dt, dtype, device)
-    slbc = slbc.reshape(n_pad, 1)
-    if ls_method == "fused":
-        raise ValueError("pallas_prom takes ls_method 'normal' or 'cg'")
-    solve_ls = _reduced_solver(ls_method)
+    with profiling.span("rom.prom_trajectory"):
+        dtype, device = vu_p.dtype, vu_p.device
+        y0 = torch.as_tensor(y0, device=device).to(dtype)
+        k = y0.shape[0]
+        n_pad = vu_p.shape[0]
+        nxp = _round_up(grid.nx + 1, 8)      # dead-cell row layout
+        ny_pad = n_pad // nxp
+        tile = tile_rows * nxp
+        sdt = dtype if ls_dtype is None else ls_dtype
+        hdx = float(0.5 * dt / grid.dx)
+        hdy = float(0.5 * dt / grid.dy)
+        slbc = torch.zeros((ny_pad, nxp), dtype=dtype, device=device)
+        slbc[: grid.ny, : grid.nx] = \
+            source_term(grid, mu2, dt, dtype, device) \
+            + inflow_bc_term(grid, mu1, dt, dtype, device)
+        slbc = slbc.reshape(n_pad, 1)
+        if ls_method == "fused":
+            raise ValueError("pallas_prom takes ls_method 'normal' or "
+                             "'cg'")
+        solve_ls = _reduced_solver(ls_method)
 
-    def solve(gext):
-        return solve_ls(gext[:k, :k], -gext[:k, k])
+        def solve(gext):
+            return solve_ls(gext[:k, :k], -gext[:k, k])
 
-    def step(yp, _sp):
-        gext0, cp = gn_full_first(vu_p, vv_p, yp, slbc, dmask, k, nxp,
-                                  tile, hdx, hdy)
-        gext0 = gext0.to(sdt)
-        init_norm = torch.sqrt(gext0[k, k])
-        dy0 = solve(gext0)
-        y1 = (yp.to(dy0.dtype) + dy0).to(dtype)
+        def step(yp, _sp):
+            with profiling.span("rom.prom_system"):
+                gext0, cp = gn_full_first(vu_p, vv_p, yp, slbc, dmask, k,
+                                          nxp, tile, hdx, hdy)
+            with profiling.span("rom.prom_solve"):
+                gext0 = gext0.to(sdt)
+                init_norm = torch.sqrt(gext0[k, k])
+                dy0 = solve(gext0)
+                y1 = (yp.to(dy0.dtype) + dy0).to(dtype)
 
-        def system(y):
-            gext = gn_full_system(vu_p, vv_p, y, cp, dmask, k, nxp, tile,
-                                  hdx, hdy).to(sdt)
-            return solve(gext), torch.sqrt(gext[k, k])
+            def system(y):
+                with profiling.span("rom.prom_system"):
+                    gext = gn_full_system(vu_p, vv_p, y, cp, dmask, k, nxp,
+                                          tile, hdx, hdy)
+                with profiling.span("rom.prom_solve"):
+                    gext = gext.to(sdt)
+                    return solve(gext), torch.sqrt(gext[k, k])
 
-        y, it, ev = _gauss_newton(
-            y1, init_norm, system, it0=1, unrolled=unroll_its > 0,
-            n_iters=unroll_its - 1, max_its=max_its,
-            relnorm_cutoff=relnorm_cutoff, min_delta=min_delta)
-        return y, it, ev + 1
+            y, it, ev = _gauss_newton(
+                y1, init_norm, system, it0=1, unrolled=unroll_its > 0,
+                n_iters=unroll_its - 1, max_its=max_its,
+                relnorm_cutoff=relnorm_cutoff, min_delta=min_delta)
+            return y, it, ev + 1
 
-    return _time_loop(y0, num_steps, step)
+        return _time_loop(y0, num_steps, step)
 
 
 def traj_source(grid: Grid2D, mesh, dt, mu1, mu2, n_p: int, dtype):

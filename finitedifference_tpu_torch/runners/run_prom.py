@@ -3,7 +3,7 @@ rSVD basis from the 9 training trajectories, Gauss-Newton LSPG at an
 out-of-sample (mu1, mu2), error vs the cached FOM.
 
     python -m finitedifference_tpu_torch.runners.run_prom [--device cpu]
-        [--engine generic|pallas]
+        [--engine generic|pallas [--unroll-its N]]
 """
 
 import time
@@ -32,10 +32,13 @@ ENGINES = ("generic", "pallas")
 
 def main(mu1=4.75, mu2=0.02, num_modes=95, load_basis=True,
          num_cells=None, num_steps=None, f32=False, engine="generic",
-         device="cuda"):
+         device="cuda", unroll_its=0):
     dev = runner_device(device)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+    if unroll_its and engine != "pallas":
+        raise ValueError("--unroll-its runs the pallas engine's masked "
+                         "Gauss-Newton loop; add --engine pallas")
     cfg = default_config(num_cells, num_steps)
     grid, w0 = make_problem(cfg)
     dtype = torch.float32 if f32 else torch.float64
@@ -49,14 +52,17 @@ def main(mu1=4.75, mu2=0.02, num_modes=95, load_basis=True,
 
     if engine == "pallas":
         # the streaming full-grid Gauss-Newton engine (f32; csrc/gn_full.cu
-        # on the card): one pass over the basis per GN iteration
+        # on the card): one pass over the basis per GN iteration; with
+        # unroll_its > 0, that many masked iterations a step and no
+        # read-back until the end of the trajectory
         vu_p, vv_p, dmask, tile_rows = precompute_prom_pallas(
             grid, torch.as_tensor(basis, device=dev))
         y0 = torch.as_tensor(basis.T @ w0, dtype=torch.float32, device=dev)
 
         def solve():
             return pallas_prom(grid, vu_p, vv_p, dmask, y0, float(cfg.dt),
-                               cfg.num_steps, mu1, mu2, tile_rows=tile_rows)
+                               cfg.num_steps, mu1, mu2, tile_rows=tile_rows,
+                               unroll_its=unroll_its)
     else:
         ls_kw = default_ls(dev)
 
@@ -92,6 +98,12 @@ if __name__ == "__main__":
     p.add_argument("--engine", default="generic", choices=list(ENGINES),
                    help="pallas = the streaming full-grid Gauss-Newton "
                         "engine (f32; the gn_full kernel on the card)")
+    p.add_argument("--unroll-its", type=int, default=0,
+                   help="with --engine pallas: N masked Gauss-Newton "
+                        "iterations a step (the first included) and one "
+                        "read-back a trajectory; 0 (default) stops each "
+                        "step by the reference's rules, reading back once "
+                        "an iteration")
     a = p.parse_args()
     main(a.mu1, a.mu2, a.num_modes, not a.no_load_basis,
-         a.num_cells, a.num_steps, a.f32, a.engine, a.device)
+         a.num_cells, a.num_steps, a.f32, a.engine, a.device, a.unroll_its)

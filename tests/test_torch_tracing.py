@@ -1,8 +1,8 @@
 """The port's program tracing (utils/profiling: spans and counters) on the
 CPU: off it records nothing and changes no bit of a result; on, the skewed
-FOM's and the whole-trajectory HPROM's spans nest under their request's
-root, count what they should, share the clock of torch.profiler's events
-and appear in `trace`'s Chrome trace.
+FOM's, the whole-trajectory HPROM's and the full-grid PROM's spans nest
+under their request's root, count what they should, share the clock of
+torch.profiler's events and appear in `trace`'s Chrome trace.
 """
 
 import json
@@ -30,6 +30,9 @@ FOM_KW = {"exact": dict(block=4),
           "seg": dict(block=4, seg=3, seg_overlap=2),
           "extrapolate": dict(block=4, extrapolate_guess=True)}
 HPROM_MUS = [(4.5, 0.018), (5.0, 0.025), (5.4, 0.016)]
+PROM_STEPS = 6
+PROM_SPANS = ("rom.prom_trajectory", "rom.prom_system", "rom.prom_solve",
+              "rom.gn_update")
 
 
 def run_fom(kind, mu=MU):
@@ -62,6 +65,26 @@ def hprom():
 def run_hprom(p, mus=HPROM_MUS):
     return rf.traj_hprom_batch(p["grid"], p["mesh"], p["p6p"], p["wgt_p"],
                                p["y0"], DT, 8, mus, unroll_its=3)
+
+
+@pytest.fixture(scope="module")
+def prom(hprom):
+    """The full-grid PROM's padded float32 basis halves of the HPROM
+    fixture's 6 modes."""
+    grid = hprom["grid"]
+    w0 = torch.ones(grid.state_dim, dtype=F64)
+    snaps = fom.inviscid_burgers_implicit2d_skewed(
+        grid, w0, DT, 10, *MU, block=4).snaps
+    basis = torch.linalg.svd(snaps, full_matrices=False)[0][:, :6]
+    vu_p, vv_p, dmask, tr = rf.precompute_prom_pallas(grid, basis)
+    return dict(grid=grid, padded=(vu_p, vv_p, dmask),
+                y0=(basis.T @ w0).to(torch.float32), tile_rows=tr)
+
+
+def run_prom(p, unroll_its, mu=MU):
+    return rf.pallas_prom(p["grid"], *p["padded"], p["y0"], DT, PROM_STEPS,
+                          *mu, unroll_its=unroll_its,
+                          tile_rows=p["tile_rows"])
 
 
 def test_spans_nest_and_share_their_request():
@@ -116,14 +139,20 @@ def test_off_by_default_and_after_a_recording():
     assert rec.counters == {}
 
 
-@pytest.mark.parametrize("kind", ["exact", "seg", "extrapolate", "hprom"])
-def test_off_records_nothing_and_on_changes_no_bit(kind, hprom, monkeypatch):
+@pytest.mark.parametrize("kind", ["exact", "seg", "extrapolate", "hprom",
+                                  "prom_exact", "prom_unroll3"])
+def test_off_records_nothing_and_on_changes_no_bit(kind, hprom, prom,
+                                                   monkeypatch):
     """Off: no span is made and no counter kept (either would raise here);
     the results with tracing on are bit-equal to those with it off."""
     def run():
         if kind == "hprom":
             red, its = run_hprom(hprom)
             return [red, its]
+        if kind.startswith("prom"):
+            res = run_prom(prom, 3 if kind == "prom_unroll3" else 0)
+            return [res.red_coords, torch.tensor(res.total_gn_its),
+                    torch.tensor(res.gn_evals)]
         res = run_fom(kind)
         return [res.snaps, torch.tensor(res.total_newton_its),
                 res.max_final_relnorm]
@@ -185,6 +214,53 @@ def test_gn_systems_count_the_trajectory_engines_evals(hprom):
     assert int(its.sum()) < rec.counters["rom.gn_systems"]
     names = [(s.name, s.parent != 0) for s in rec.spans]
     assert names == [("rom.traj_inputs", True), ("rom.traj_batch", False)]
+
+
+@pytest.mark.parametrize("unroll_its", [0, 3], ids=["exact", "unroll3"])
+def test_prom_spans_sit_under_their_trajectory(prom, unroll_its):
+    """Every span of two full-grid PROM trajectories nests under its
+    request's rom.prom_trajectory; rom.prom_system and the counter
+    rom.gn_full_systems count ROMResult.gn_evals; rom.gn_sync and
+    rom.gn_host_syncs count the exact loop's stop checks (a step's every
+    system but its first) and are absent when masked."""
+    with profiling.recording() as rec:
+        results = [run_prom(prom, unroll_its, mu)
+                   for mu in (MU, (4.3, 0.029))]
+    by_id = {s.id: s for s in rec.spans}
+    roots = [s for s in rec.spans if s.parent == 0]
+    assert [r.name for r in roots] == ["rom.prom_trajectory"] * 2
+    assert roots[0].request != roots[1].request
+    for s in rec.spans:
+        top = s
+        while top.parent:
+            top = by_id[top.parent]
+        assert top.name == "rom.prom_trajectory" and s.request == top.id
+    evals = sum(r.gn_evals for r in results)
+    checks = evals - 2 * PROM_STEPS
+    names = [s.name for s in rec.spans]
+    assert names.count("rom.prom_system") == evals
+    assert names.count("rom.prom_solve") == evals
+    assert names.count("rom.gn_update") == checks
+    assert names.count("rom.gn_sync") == (0 if unroll_its else checks)
+    assert set(names) == set(PROM_SPANS) | (
+        set() if unroll_its else {"rom.gn_sync"})
+    want = {"rom.gn_full_systems": evals}
+    if not unroll_its:
+        want["rom.gn_host_syncs"] = checks
+    assert rec.counters == want
+    if unroll_its:
+        assert evals == unroll_its * 2 * PROM_STEPS
+    else:
+        # a check after each update of a step, the last one stopping it
+        assert checks == sum(r.total_gn_its for r in results)
+    # each rom.gn_sync sits in a rom.gn_update; systems and solves
+    # directly under the trajectory
+    for s in rec.spans:
+        parent = by_id.get(s.parent)
+        if s.name == "rom.gn_sync":
+            assert parent.name == "rom.gn_update"
+        elif s.name != "rom.prom_trajectory":
+            assert parent.name == "rom.prom_trajectory"
 
 
 def test_spans_share_the_profilers_clock():
